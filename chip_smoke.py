@@ -1,0 +1,334 @@
+"""On-card smoke run of the torch port (`dexrobot_isaac_tpu_torch`).
+
+    python3 chip_smoke.py
+
+Needs one CUDA card and the CUDA toolkit (nvcc); exits non-zero, printing no
+result, without them or outside a checkout of this repository. Phases, each
+failing the run when it fails:
+
+1. build   compile the kernels of csrc/ with nvcc for sm_90a (one nvcc per
+           source, started together); print the build seconds and the
+           ptxas register/spill report, and the card's name and power limit.
+2. golden  replay tests/golden/fused_blind_grasping.npz (recorded from the
+           TPU kernel) through the CUDA fused kernel K1 with the JAX-sampled
+           operands of dexrobot_isaac_tpu_torch/data/golden_operands.npz;
+           obs atol 2e-4, reward and components atol 1e-3, done exact.
+3. K2      at 4096 envs of the default BlindGrasping config, from a
+           contact-rich state (plain steps of random actions): one control
+           step of the lane-physics kernel against the plain engine, and
+           min_site_z against the plain FK.
+4. K1      one fused step at 4096 envs against the plain fused step.
+5. main    the port's main path, counted: make_env -> reset -> 600 fused
+           steps of uniform random actions in [-1, 1] (episodeLength 500, so
+           auto-resets fire), then 10 unfused (evaluation-path) steps.
+           Launch counters are zeroed just before and read just after.
+6. numbers env-steps/s of the 600-step rollout and each kernel's ms per
+           launch (CUDA events, after warm-up) beside its plain version's ms
+           and its bound on the card (f32 operations counted from the kernel
+           code for these inputs); the device's busy share over 20 fused
+           steps under torch.profiler.
+
+The line before the last is a JSON object of the kernels; the last line is
+the run's result: {"ok": true, "device": {...}}.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(ROOT, "tests", "golden", "fused_blind_grasping.npz")
+H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
+H100_F32_PER_S = 67e12       # f32 outside the tensor cores, H100 SXM data sheet
+N_ENVS = 4096
+ROLLOUT_STEPS = 600
+# the golden scenario (tests/golden_scenario.py)
+GOLDEN_CONFIG = ["task=BlindGrasping", "numEnvs=8", "env.episodeLength=6", "sim.substeps=2"]
+GOLDEN_SEED = 123
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(what)
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def bound(nbytes: float, flops: float):
+    tb, tf = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_F32_PER_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-6))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from dexrobot_isaac_tpu_torch.envs import fused_step
+    from dexrobot_isaac_tpu_torch.factory import make_env
+    from dexrobot_isaac_tpu_torch.physics import lane_step
+    from dexrobot_isaac_tpu_torch.utils import kernel_build as kb
+    from dexrobot_isaac_tpu_torch.utils.config import load_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+    log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+
+    # ---------------------------------------------------------------- 1 build
+    secs = kb.build_all()
+    log(f"[build] nvcc seconds: {json.dumps({k: round(v, 1) for k, v in secs.items()})}")
+    for name in kb.SOURCES:
+        with open(kb.lib_path(name) + ".ptxas.txt") as f:
+            for line in f:
+                if any(s in line for s in ("registers", "spill", "stack frame")):
+                    log(f"[build] {name}: {line.strip()}")
+
+    # ---------------------------------------------------------------- 2 golden
+    golden = dict(np.load(GOLDEN))
+    ops = {k: torch.as_tensor(v, device=dev) for k, v in np.load(
+        os.path.join(ROOT, "dexrobot_isaac_tpu_torch", "data", "golden_operands.npz")).items()}
+    env = make_env(load_config(GOLDEN_CONFIG), seed=GOLDEN_SEED, device=dev)
+    fused = env.make_fused()
+    fs, _ = fused.reset(samples=(fused.reset_from_rows(ops["init_rst"]), None))
+    got = {k: [] for k in ("obs", "rew", "done", "comp")}
+    for t in range(ops["actions"].shape[0]):
+        fs, obs, rew, done, ex = fused.step_fn(fs, ops["actions"][t],
+                                              operands=(ops["rst"][t], ops["drn"][t]))
+        for k, v in (("obs", obs), ("rew", rew), ("done", done),
+                     ("comp", ex["reward_components_packed"])):
+            got[k].append(v.cpu().numpy())
+    got = {k: np.stack(v) for k, v in got.items()}
+    gerr = {k: float(np.abs(got[k] - golden[k]).max()) for k in ("obs", "rew", "comp")}
+    done_ok = bool(np.array_equal(got["done"], golden["done"]))
+    log(f"[golden] K1 (CUDA) vs TPU recording, 12 steps x 8 envs: done equal {done_ok}, "
+        f"max abs err obs {gerr['obs']:.3e} (atol 2e-4) rew {gerr['rew']:.3e} (atol 1e-3) "
+        f"comp {gerr['comp']:.3e} (atol 1e-3)")
+    check(done_ok and gerr["obs"] <= 2e-4 and gerr["rew"] <= 1e-3 and gerr["comp"] <= 1e-3,
+          "golden replay through the CUDA fused kernel missed its tolerances")
+
+    # ---------------------------------------------------------------- 3 K2
+    env = make_env(load_config(["task=BlindGrasping", f"numEnvs={N_ENVS}"]), seed=7, device=dev)
+    c = env.comps
+    fused = env.make_fused()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    state, _ = env.reset_fn()
+    t0 = time.perf_counter()
+    for _ in range(3):  # plain steps of random actions: a contact-rich state
+        samples = env.draw_samples(N_ENVS, state.difficulty)
+        acts = torch.rand(N_ENVS, env.num_actions, generator=gen, device=dev) * 2 - 1
+        state, *_ = env._step(state, acts, *samples, env._plain_control_step)
+    torch.cuda.synchronize()
+    log(f"[K2] 3 plain steps at {N_ENVS} envs: {time.perf_counter() - t0:.1f} s")
+    spawn = env._spawn.expand(N_ENVS, 3)
+    ph, tgt, dr = state.physics, state.full_dof_targets, state.dr
+    kernel_cs = lane_step.build_control_step(c.engine, c.physics_steps_per_control)
+    plain_cs = c.engine.plain_control_step(c.physics_steps_per_control)
+    kst, kinfo, kkin = kernel_cs(ph, tgt, spawn, dr)
+    pst, pinfo, pkin = plain_cs(ph, tgt, spawn, dr)
+    torch.cuda.synchronize()
+    box = lambda s: torch.cat([s.box_pos, s.box_quat, s.box_linvel, s.box_angvel], 1)
+    k2 = {
+        "q": rel_err(kst.q, pst.q), "qd": rel_err(kst.qd, pst.qd),
+        "box": rel_err(box(kst), box(pst)),
+        "body_pos": rel_err(kkin.body_pos, pkin.body_pos),
+        "site_pos": rel_err(kkin.site_pos, pkin.site_pos),
+        "body_linvel": rel_err(kkin.body_linvel, pkin.body_linvel),
+        "contact_force": rel_err(kinfo.body_contact_force, pinfo.body_contact_force),
+        "box_force": rel_err(kinfo.box_contact_force, pinfo.box_contact_force),
+    }
+    k2_abs = max(float((a - b).abs().max()) for a, b in
+                 ((kst.q, pst.q), (kst.qd, pst.qd), (box(kst), box(pst))))
+    n_contact = int((pinfo.body_contact_force.abs().sum((1, 2)) > 0).sum())
+    log(f"[K2] control step vs plain at {N_ENVS} envs ({n_contact} envs in hand contact): "
+        "relative err " + " ".join(f"{k} {v:.2e}" for k, v in k2.items()))
+    check(all(v <= 1e-3 for v in k2.values()), "K2 disagrees with the plain engine beyond 1e-3")
+    tips = [int(x) for x in c.obs_cfg.fingertip_site_indices]
+    mz_k = lane_step.min_site_z(c.engine, ph.q, env._spawn, tips)
+    mz_p = c.engine.min_site_z(ph.q, spawn, tips)
+    mz_err = float((mz_k - mz_p).abs().max())
+    log(f"[K2] min_site_z vs plain on {N_ENVS} poses: max abs err {mz_err:.3e} (atol 1e-5)")
+    check(mz_err <= 1e-5, "min_site_z disagrees with the plain FK")
+
+    # ---------------------------------------------------------------- 4 K1
+    fs_k1 = fused.pack(state)  # K1's inputs, timed again in phase 6
+    # every other env at its last episode step: the step's reset merge and
+    # spawn projection run on half the envs
+    o_epi = fused.layout.offs_i["episode_step_count"][0]
+    fs_k1.rows_i[o_epi, ::2] = c.term_cfg.max_episode_length - 2
+    acts = (torch.rand(N_ENVS, env.num_actions, generator=gen, device=dev) * 2 - 1)
+    reset, drs = env.draw_samples(N_ENVS, fs_k1.difficulty)
+    rst, drn = fused.operand_rows(reset, drs, N_ENVS, dev)
+    spw = env._spawn[:, None].expand(3, N_ENVS).contiguous()
+    act_T = acts.t().contiguous()
+    rf_k, ri_k = fs_k1.rows_f.clone(), fs_k1.rows_i.clone()
+    rf_p, ri_p = fs_k1.rows_f.clone(), fs_k1.rows_i.clone()
+    ko = fused.kernel(rf_k, ri_k, act_T, rst, drn, spw)
+    po = fused.kernel_plain(rf_p, ri_p, act_T, rst, drn, spw)
+    torch.cuda.synchronize()
+    mism = (ko[3] != po[3]).any(0)
+    ok = ~mism
+    k1 = {"obs": float((ko[1][:, ok] - po[1][:, ok]).abs().max()),
+          "rew": float((ko[2][:, ok] - po[2][:, ok]).abs().max()),
+          "comp": float((ko[4][:, ok] - po[4][:, ok]).abs().max()),
+          "rows_f": rel_err(rf_k[:, ok], rf_p[:, ok])}
+    ri_equal = bool(torch.equal(ri_k[:, ok], ri_p[:, ok]))
+    n_done = int(ko[3][0].sum())
+    log(f"[K1] fused step vs plain at {N_ENVS} envs: mask mismatches {int(mism.sum())} "
+        f"(dones {n_done}); where masks agree max abs err obs {k1['obs']:.3e} "
+        f"rew {k1['rew']:.3e} comp {k1['comp']:.3e}, rows_f rel {k1['rows_f']:.2e}, "
+        f"rows_i equal {ri_equal}")
+    check(int(mism.sum()) <= N_ENVS // 100 and n_done >= N_ENVS // 2 and k1["obs"] <= 2e-4
+          and k1["rew"] <= 1e-3 and k1["comp"] <= 1e-3 and k1["rows_f"] <= 1e-3 and ri_equal,
+          "K1 disagrees with the plain fused step")
+
+    # ---------------------------------------------------------------- 5 main path
+    env = make_env(load_config(["task=BlindGrasping", f"numEnvs={N_ENVS}"]), seed=42, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    fused = env.make_fused()
+    fs, obs = fused.reset()
+    n_dones, finite = 0, True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(ROLLOUT_STEPS):
+        acts = torch.rand(N_ENVS, env.num_actions, generator=gen, device=dev) * 2 - 1
+        fs, obs, rew, done, _ = fused.step_fn(fs, acts)
+        n_dones += done.sum()
+        if step % 100 == 99:
+            finite &= bool(torch.isfinite(obs).all() & torch.isfinite(rew).all())
+    torch.cuda.synchronize()
+    rollout_s = time.perf_counter() - t0
+    finite &= bool(torch.isfinite(obs).all() & torch.isfinite(rew).all())
+    env.state = fused.unpack(fs)
+    for _ in range(10):  # the unfused step: the evaluation path
+        obs_u, rew_u, done_u, _ = env.step(
+            torch.rand(N_ENVS, env.num_actions, generator=gen, device=dev) * 2 - 1)
+    torch.cuda.synchronize()
+    launches = dict(kb.LAUNCHES)
+    n_dones = int(n_dones)
+    finite &= bool(torch.isfinite(obs_u).all() & torch.isfinite(rew_u).all())
+    sps = ROLLOUT_STEPS * N_ENVS / rollout_s
+    log(f"[main] {ROLLOUT_STEPS} fused steps x {N_ENVS} envs in {rollout_s:.2f} s = "
+        f"{sps:,.0f} env-steps/s; dones {n_dones}; finite {finite}; obs {tuple(obs.shape)}; "
+        f"launches {launches}")
+    check(finite and n_dones > 0 and tuple(obs.shape) == (N_ENVS, fused.obs_dim),
+          "rollout output not finite, of the wrong shape, or without a done")
+    check(launches["fused_step"] == ROLLOUT_STEPS and launches["control_step"] == 10
+          and launches["min_site_z"] >= 1, f"main path missed a kernel: {launches}")
+
+    # ---------------------------------------------------------------- 6 numbers
+    # kernel timings on the phase-3/4 inputs (launches here are not counted).
+    # K1 writes its state rows in place, so each timed call first restores
+    # them: two device copies of 2.7 MB, a few microseconds of its time.
+    saved = dict(kb.LAUNCHES)
+    rf, ri = fs_k1.rows_f.clone(), fs_k1.rows_i.clone()
+
+    def k1_on_phase4_inputs(fn):
+        rf.copy_(fs_k1.rows_f)
+        ri.copy_(fs_k1.rows_i)
+        return fn(rf, ri, act_T, rst, drn, spw)
+
+    k1_ms = cuda_ms(lambda: k1_on_phase4_inputs(fused.kernel), 20)
+    k1_plain_ms = cuda_ms(lambda: k1_on_phase4_inputs(fused.kernel_plain), 1, 1)
+    T = lambda x: x.t().contiguous()
+    rows = (T(ph.q), T(ph.qd), T(tgt), T(spawn), T(box(ph)), dr.rows().contiguous())
+    k2_ms = cuda_ms(lambda: lane_step.control_step_rows(
+        c.engine, c.physics_steps_per_control, *rows), iters=20)
+    k2_plain_ms = cuda_ms(lambda: plain_cs(ph, tgt, spawn, dr), 1, 1)
+    msz_ms = cuda_ms(lambda: lane_step.min_site_z(c.engine, ph.q, env._spawn, tips), 50)
+    msz_plain_ms = cuda_ms(lambda: c.engine.min_site_z(ph.q, spawn, tips), 5)
+
+    # where a rollout step's time goes: torch.profiler over 20 fused steps
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            acts = torch.rand(N_ENVS, env.num_actions, generator=gen, device=dev) * 2 - 1
+            fs, obs, rew, done, _ = fused.step_fn(fs, acts)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+              if getattr(e, "self_device_time_total", 0) > 0}
+    busy = sum(dev_ms.values())
+    top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:4]
+    log(f"[profile] 20 fused steps x {N_ENVS} envs: wall {wall_ms:.1f} ms, device busy "
+        f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%); top: "
+        + "; ".join(f"{k[:48]} {v:.1f} ms ({100 * v / max(busy, 1e-9):.1f}%)" for k, v in top))
+
+    kb.LAUNCHES.update(saved)
+    # f32 operations counted from the kernel code for this run's inputs: K1's
+    # spawn projection runs only for the n_done envs that reset in phase 4
+    cs_lib, fs_lib = kb.load("control_step"), kb.load("fused_step")
+    r = lane_step.lane_model_array(c.engine, c.physics_steps_per_control, cs_lib)
+    r_cfg = fused_step.fused_config_array(env, fused.layout, fused.comp_names,
+                                          fused.rst_rows, fs_lib)
+    f_k1 = fused_step.fused_step_flops(r_cfg, r, N_ENVS, n_done)
+    f_k2 = lane_step.control_step_flops(r) * N_ENVS
+    f_msz = lane_step.min_site_z_flops(r, len(tips)) * N_ENVS
+    b_k1 = nbytes(rf, ri, act_T, rst, drn, spw, *ko, rf, ri)
+    b_k2 = 4 * N_ENVS * (26 * 3 + 3 + 13 + 4 + 26 * 2 + 13 + 78 + 3 + 26 * 19 + 10 * 7)
+    b_msz = 4 * N_ENVS * (26 + 3 + 1)
+    kernels = []
+    for name, src, rep, ms, pms, err, (bms, by) in (
+        ("fused_step", "dexrobot_isaac_tpu_torch/csrc/fused_step.cu",
+         "dexrobot_isaac_tpu/envs/fused_step.py:1080", k1_ms, k1_plain_ms, k1["obs"],
+         bound(b_k1, f_k1)),
+        ("control_step", "dexrobot_isaac_tpu_torch/csrc/control_step.cu",
+         "dexrobot_isaac_tpu/physics/pallas_step.py:1141", k2_ms, k2_plain_ms, k2_abs,
+         bound(b_k2, f_k2)),
+        ("min_site_z", "dexrobot_isaac_tpu_torch/csrc/control_step.cu",
+         "dexrobot_isaac_tpu/physics/pallas_step.py:986", msz_ms, msz_plain_ms, mz_err,
+         bound(b_msz, f_msz)),
+    ):
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                        "launches": launches[name], "max_abs_err": err, "ms": ms,
+                        "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": None})
+        log(f"[numbers] {name}: {ms:.3f} ms/launch, plain {pms:.3f} ms, bound {bms:.4f} ms "
+            f"({by}), launches {launches[name]}")
+    log(f"[numbers] env-steps/s {sps:,.0f} ({card}); total {time.perf_counter() - t_start:.0f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

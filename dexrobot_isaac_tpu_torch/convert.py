@@ -1,0 +1,74 @@
+"""Carry the JAX package's data over into the port (numpy in, torch out).
+
+The JAX package's states, samples and model arrive here as numpy (a caller
+runs `jax.device_get` first); this module imports nothing of JAX and reads
+them by attribute name, so both packages compute on the same values:
+
+- `env_state`: a JAX `EnvState` -> the port's `EnvState` (its `rng` key has
+  no counterpart: the port's env owns a torch.Generator);
+- `fused_state`: a JAX `FusedEnvState` -> the port's `FusedEnvState`;
+- `task_reset` / `dr_sample`: JAX reset and DR samples -> the port's, which
+  `envs/fused_step.py` `operand_rows` turns into the kernel's operand rows;
+- `hand_model`: the JAX `HandModel` arrays -> the port's `HandModel`.
+
+The tensors go to the card unless the caller passes `device="cpu"`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from dexrobot_isaac_tpu_torch.envs.fused_step import FusedEnvState
+from dexrobot_isaac_tpu_torch.envs.tasks.api import TaskReset
+from dexrobot_isaac_tpu_torch.envs.types import EnvState
+from dexrobot_isaac_tpu_torch.models.dexhand021 import HandModel
+from dexrobot_isaac_tpu_torch.physics.types import DRSample, PhysicsState
+from dexrobot_isaac_tpu_torch.utils.device import resolve_device
+
+
+def tensor(x, device="cuda") -> torch.Tensor:
+    return torch.as_tensor(np.array(x), device=resolve_device(device))
+
+
+def _fields(cls, src, device, names=None):
+    return {f.name: tensor(getattr(src, f.name), device)
+            for f in dataclasses.fields(cls) if names is None or f.name in names}
+
+
+def dr_sample(src, device="cuda") -> DRSample:
+    return DRSample(**_fields(DRSample, src, device))
+
+
+def env_state(src, device="cuda") -> EnvState:
+    flat = {f.name for f in dataclasses.fields(EnvState)} - {
+        "physics", "success_flags", "failure_flags", "task_states", "dr"}
+    d = lambda m: {k: tensor(v, device) for k, v in m.items()}
+    return EnvState(
+        physics=PhysicsState(**_fields(PhysicsState, src.physics, device)),
+        success_flags=d(src.success_flags), failure_flags=d(src.failure_flags),
+        task_states=d(src.task_states), dr=dr_sample(src.dr, device),
+        **_fields(EnvState, src, device, flat),
+    )
+
+
+def fused_state(src, device="cuda") -> FusedEnvState:
+    return FusedEnvState(**_fields(FusedEnvState, src, device))
+
+
+def task_reset(src, device="cuda") -> TaskReset:
+    opt = lambda x: None if x is None else tensor(x, device)
+    return TaskReset(
+        dof_pos=tensor(src.dof_pos, device), box_pos=opt(src.box_pos),
+        box_quat=opt(src.box_quat),
+        task_states=None if src.task_states is None
+        else {k: tensor(v, device) for k, v in src.task_states.items()},
+    )
+
+
+def hand_model(src) -> HandModel:
+    return HandModel(**{f.name: (list(getattr(src, f.name)) if f.type in ("List[str]",)
+                                 else np.array(getattr(src, f.name)))
+                        for f in dataclasses.fields(HandModel)})

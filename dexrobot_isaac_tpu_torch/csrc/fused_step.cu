@@ -1,0 +1,603 @@
+// K1: the fused env step, one whole BlindGrasping control step per env.
+//
+// Replaces the TPU kernel of dexrobot_isaac_tpu/envs/fused_step.py
+// (build_fused_step -> kernel_body, pallas_call at :1080 in
+// call_kernel_pallas). One thread per env runs, on its own column of the
+// packed state: the action pipeline (position / position_delta, velocity and
+// position clamps, 18 -> 26 coupling), the lane physics of lane_physics.cuh
+// (physics_steps_per_control x substeps substeps, then the final FK and the
+// fingertip/pad sites), the default observations, BlindGrasping's task step,
+// the hitting-ground check, termination, the common + task rewards and their
+// weighted sum, the obs/reward/mask/component rows, the spawn projection of
+// the reset rows (lp_min_site_z, the factory's reset-path function) and the
+// done-masked reset merge. rows_f / rows_i are read and written IN PLACE (the
+// JAX kernel aliases them): each thread loads its whole column first.
+//
+// The static plan (obs key order, reward weights, component order, active
+// criteria and flag rows, row offsets, action limits, task constants) is
+// DATA in a FusedConfig buffer built by envs/fused_step.py.
+//
+// What bounds it on the H100: per env it reads rows_f (141) + rows_i (22) +
+// actions (18) + reset rows (43) + DR (4) + spawn (3) = 231 words and writes
+// rows_f + rows_i (163), rows_c (104), obs (158), reward (1), masks (4) and
+// components (39) = 469 words: ~2.8 KB/env, ~11.5 MB at 4096 envs, ~3.4 us
+// at 3.35 TB/s. The 16 substeps of lane physics carry ~5e5 f32 FLOPs/env
+// (~2e9 at 4096 envs, ~30 us at 67 TFLOP/s), so the FLOPs bound it. The
+// simple design (one thread per env, 128 warps at 4096 envs, per-body
+// arrays in local memory, blocks of 32 threads to spread warps over the SMs)
+// leaves the occupancy and register/spill work for later PRs.
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#endif
+
+#include "lane_physics.cuh"
+
+#define FS_THREADS 32
+
+#define FUSED_CONFIG_FIELDS(S, A)                                                \
+  S(int, n_act) S(int, position_mode) S(int, controls_base) S(int, controls_fingers) \
+  S(int, n_filters) A(int, filters, 4) A(float, lo, 18) A(float, hi, 18)        \
+  A(float, md, 18) A(int, csrc, 26) A(float, cscale, 26) A(int, act_idx, 18)    \
+  S(int, nc) A(int, contact_body, 8) S(float, contact_binary_threshold)         \
+  S(float, control_dt) S(int, hand_b) A(int, tip_site, 5) A(int, pad_site, 5)  \
+  S(int, n_obs_keys) A(int, obs_keys, 64) S(int, obs_dim)                       \
+  S(int, rows_f) S(int, rows_i) S(int, rows_c) S(int, rst_rows)                 \
+  S(int, f_q) S(int, f_qd) S(int, f_box_pos) S(int, f_box_quat)                 \
+  S(int, f_box_linvel) S(int, f_box_angvel) S(int, f_active_prev_targets)       \
+  S(int, f_prev_actions) S(int, f_prev_contact_binary)                          \
+  S(int, f_prev_finger_dof_vel) S(int, f_prev_hand_vel)                         \
+  S(int, f_prev_hand_ang_vel) A(int, f_dr, 4) S(int, f_initial_box_pos)         \
+  S(int, f_stage_contact_duration) S(int, f_time_in_stage)                      \
+  S(int, i_episode_step_count) S(int, i_contact_duration_steps)                 \
+  S(int, i_prev_contacts) S(int, i_current_stage) S(int, i_just_t2)             \
+  S(int, i_just_t3) S(int, i_success_conditions_met)                            \
+  S(int, i_success_duration_steps) S(int, c_full_dof_targets)                   \
+  S(int, c_body_contact_force)                                                  \
+  S(int, n_sflags) A(int, sflag_crit, 8) A(int, sflag_row, 8)                   \
+  S(int, n_fflags) A(int, fflag_crit, 8) A(int, fflag_row, 8)                   \
+  S(int, max_episode_length) S(float, success_reward) S(float, failure_penalty) \
+  S(float, timeout_penalty) S(int, has_height_safety)                           \
+  S(float, handbase_threshold) S(float, fingertip_threshold)                    \
+  S(int, has_proj) S(float, proj_clear) A(float, proj_spawn, 3)                 \
+  S(int, proj_site_mask)                                                        \
+  S(int, n_rew) A(int, rew_term, 32) A(float, rew_w, 32)                        \
+  S(int, n_comp) A(int, comp_kind, 96) A(int, comp_idx, 96)                     \
+  A(float, finger_lower, 20) A(float, finger_upper, 20)                         \
+  S(float, bg_contact_thr) S(float, bg_prox_thr) S(float, bg_height_thr)        \
+  S(int, bg_min_fingers) S(float, bg_max_box_dist) S(float, bg_s1_dur)          \
+  S(float, bg_s2_dur) S(float, bg_s2_contact_thr) S(float, bg_d_ha)             \
+  S(float, bg_d_cp) S(float, bg_d_os) S(float, bg_d_fhc) S(float, bg_d_fpp)     \
+  S(float, bg_d_bs) S(float, bg_tol_h) S(float, bg_tol_c)                       \
+  S(float, bg_tol_drift) S(float, bg_tol_vel) S(float, bg_box_z)                \
+  S(float, bg_s3_den) S(float, bg_pen_thr) S(float, bg_min_reward_dist)         \
+  S(float, bg_pen_scale) S(float, bg_ub_half) S(float, bg_ub_margin)            \
+  S(float, bg_ub_ground_z) S(float, bg_cdt) S(int, bg_threshold_steps)
+
+struct FusedConfig {
+  FUSED_CONFIG_FIELDS(LP_DECL_S, LP_DECL_A)
+};
+
+// observation keys (envs/fused_step.py OBS_KEYS order)
+enum {
+  OK_BASE_DOF_POS, OK_BASE_DOF_VEL, OK_ACTIVE_FINGER_DOF_POS, OK_ACTIVE_FINGER_DOF_VEL,
+  OK_ALL_FINGER_DOF_POS, OK_ALL_FINGER_DOF_VEL, OK_HAND_POSE, OK_HAND_POSE_ARR_ALIGNED,
+  OK_CONTACT_FORCES, OK_CONTACT_FORCE_MAGNITUDE, OK_CONTACT_BINARY, OK_CONTACT_DURATION,
+  OK_PREV_ACTIONS, OK_ACTIVE_PREV_TARGETS, OK_BASE_DOF_TARGET, OK_ACTIVE_FINGER_DOF_TARGET,
+  OK_ALL_FINGER_DOF_TARGET, OK_FINGERTIP_POSES_WORLD, OK_FINGERTIP_POSES_HAND,
+  OK_FINGERPAD_POSES_WORLD, OK_FINGERPAD_POSES_HAND, OK_EPISODE_TIME,
+  OK_OBJECT_POS, OK_OBJECT_VEL, OK_FINGER_TO_OBJECT_DISTANCES,
+  OK_AVG_FINGER_TO_OBJECT_DISTANCE, OK_FINGER_TO_OBJECT_HEIGHT_DIFF,
+  OK_AVG_FINGER_TO_OBJECT_HEIGHT_DIFF, OK_HAND_TO_OBJECT_DISTANCE, OK_FINGERPAD_DISTANCES,
+  OK_FIRST_THREE_FINGERPAD_CENTROID, OK_THUMB_CONTACT, OK_OTHER_FINGERS_CONTACT,
+  OK_GRASP_STATE, OK_GRASP_DURATION, OK_CURRENT_STAGE, OK_TIME_IN_STAGE, OK_STAGE_PROGRESS,
+};
+
+// reward terms (envs/fused_step.py REWARD_TERMS order: common, then task)
+enum {
+  RT_ALIVE, RT_HEIGHT_SAFETY, RT_FINGER_VELOCITY, RT_HAND_VELOCITY,
+  RT_HAND_ANGULAR_VELOCITY, RT_JOINT_LIMIT, RT_FINGER_ACCELERATION, RT_HAND_ACCELERATION,
+  RT_HAND_ANGULAR_ACCELERATION, RT_CONTACT_STABILITY,
+  RT_S1_HEIGHT_ALIGNMENT, RT_S1_CENTROID_POSITIONING, RT_S1_OBJECT_STABILITY,
+  RT_S1_FINGER_HEIGHT_CONSISTENCY, RT_S1_THUMB_ROTATION, RT_S2_THUMB_CONTACT,
+  RT_S2_OTHER_FINGERS_CONTACT, RT_S2_GRASP_ACHIEVEMENT, RT_S2_FINGERPAD_PROXIMITY,
+  RT_S2_BASE_STABILITY, RT_S3_OBJECT_HEIGHT, RT_S3_GRASP_MAINTENANCE, RT_S3_GRASP_DURATION,
+  RT_S1_COMPLETION, RT_S2_COMPLETION, RT_PENETRATION_PENALTY, RT_UNDER_BOX_PENALTY,
+  RT_COUNT
+};
+
+// criteria (SUCCESS_CRITERIA / FAILURE_CRITERIA order)
+enum { SC_GRASP_LIFT_SUCCESS, SC_COUNT };
+enum { FC_HITTING_GROUND, FC_BOX_TOO_FAR, FC_S1_PREGRASP_FAILED, FC_S2_CONTACT_FAILED,
+       FC_S3_GRASP_LOST, FC_COUNT };
+
+// component kinds: 0 raw term, 1 weighted term, then TERM_COMPONENTS order
+enum { CK_RAW, CK_WEIGHTED, CK_TOTAL, CK_TERM_SUCCESS, CK_TERM_SUCCESS_W,
+       CK_TERM_FAILURE, CK_TERM_FAILURE_W, CK_TERM_TIMEOUT, CK_TERM_TIMEOUT_W };
+
+#define FS_SQRT_HALF 0.7071067811865476f
+#define FS_HALF_PI 1.5707963267948966f
+
+// everything the observation plan can read, per env
+struct FsObs {
+  float q[LP_MAXB], dvel[LP_MAXB], full[LP_MAXB], t[18], acts[32];
+  float hand_pos[3], hand_quat[4];
+  float tip_pos[5][3], tip_quat[5][4], pad_pos[5][3], pad_quat[5][4];
+  float cfc[8][3], mags[8], binary[8];
+  int new_dur[8], epi_old;
+  float box[13];
+  float d_f2o[5], hdiff[5], h2o, fpd[10], centroid[3];
+  float thumb, other, grasp, grasp_dur, stage, tis, progress;
+};
+
+LP_DEV float fs_norm3(const float* a, const float* b) {
+  float x = a[0] - b[0], y = a[1] - b[1], z = a[2] - b[2];
+  return sqrtf(x * x + y * y + z * z);
+}
+
+LP_DEV float fs_clip01(float x) { return fminf(fmaxf(x, 0.f), 1.f); }
+
+LP_DEV void fs_pose_hand(const FsObs& o, const float* p, const float* qt, float* out) {
+  float d[3] = {p[0] - o.hand_pos[0], p[1] - o.hand_pos[1], p[2] - o.hand_pos[2]};
+  float hc[4] = {-o.hand_quat[0], -o.hand_quat[1], -o.hand_quat[2], o.hand_quat[3]};
+  lp_qrot(hc, d, out);
+  lp_qmul(hc, qt, out + 3);
+}
+
+// Write one observation key's values as rows [row, row + width) of obs.
+LP_DEV int fs_put_obs(int key, const FsObs& o, const FusedConfig* c, float* obs, int row,
+                      int n, int i) {
+#define PUT(v) obs[(size_t)(row++) * n + i] = (v)
+  float tmp[7];
+  switch (key) {
+    case OK_BASE_DOF_POS: for (int j = 0; j < 6; ++j) PUT(o.q[j]); break;
+    case OK_BASE_DOF_VEL: for (int j = 0; j < 6; ++j) PUT(o.dvel[j]); break;
+    case OK_ACTIVE_FINGER_DOF_POS: for (int j = 6; j < 18; ++j) PUT(o.q[c->act_idx[j]]); break;
+    case OK_ACTIVE_FINGER_DOF_VEL: for (int j = 6; j < 18; ++j) PUT(o.dvel[c->act_idx[j]]); break;
+    case OK_ALL_FINGER_DOF_POS: for (int j = 6; j < 26; ++j) PUT(o.q[j]); break;
+    case OK_ALL_FINGER_DOF_VEL: for (int j = 6; j < 26; ++j) PUT(o.dvel[j]); break;
+    case OK_HAND_POSE:
+      for (int j = 0; j < 3; ++j) PUT(o.hand_pos[j]);
+      for (int j = 0; j < 4; ++j) PUT(o.hand_quat[j]);
+      break;
+    case OK_HAND_POSE_ARR_ALIGNED: {
+      const float inv[4] = {0.f, -FS_SQRT_HALF, 0.f, FS_SQRT_HALF};
+      lp_qmul(o.hand_quat, inv, tmp);
+      for (int j = 0; j < 3; ++j) PUT(o.hand_pos[j]);
+      for (int j = 0; j < 4; ++j) PUT(tmp[j]);
+    } break;
+    case OK_CONTACT_FORCES:
+      for (int b = 0; b < c->nc; ++b) for (int j = 0; j < 3; ++j) PUT(o.cfc[b][j]);
+      break;
+    case OK_CONTACT_FORCE_MAGNITUDE: for (int b = 0; b < c->nc; ++b) PUT(o.mags[b]); break;
+    case OK_CONTACT_BINARY: for (int b = 0; b < c->nc; ++b) PUT(o.binary[b]); break;
+    case OK_CONTACT_DURATION:
+      for (int b = 0; b < c->nc; ++b) PUT((float)o.new_dur[b] * c->control_dt);
+      break;
+    case OK_PREV_ACTIONS: for (int j = 0; j < c->n_act; ++j) PUT(o.acts[j]); break;
+    case OK_ACTIVE_PREV_TARGETS: for (int j = 0; j < 18; ++j) PUT(o.t[j]); break;
+    case OK_BASE_DOF_TARGET: for (int j = 0; j < 6; ++j) PUT(o.full[j]); break;
+    case OK_ACTIVE_FINGER_DOF_TARGET:
+      for (int j = 6; j < 18; ++j) PUT(o.full[c->act_idx[j]]);
+      break;
+    case OK_ALL_FINGER_DOF_TARGET: for (int j = 6; j < 26; ++j) PUT(o.full[j]); break;
+    case OK_FINGERTIP_POSES_WORLD:
+      for (int f = 0; f < 5; ++f) {
+        for (int j = 0; j < 3; ++j) PUT(o.tip_pos[f][j]);
+        for (int j = 0; j < 4; ++j) PUT(o.tip_quat[f][j]);
+      }
+      break;
+    case OK_FINGERTIP_POSES_HAND:
+      for (int f = 0; f < 5; ++f) {
+        fs_pose_hand(o, o.tip_pos[f], o.tip_quat[f], tmp);
+        for (int j = 0; j < 7; ++j) PUT(tmp[j]);
+      }
+      break;
+    case OK_FINGERPAD_POSES_WORLD:
+      for (int f = 0; f < 5; ++f) {
+        for (int j = 0; j < 3; ++j) PUT(o.pad_pos[f][j]);
+        for (int j = 0; j < 4; ++j) PUT(o.pad_quat[f][j]);
+      }
+      break;
+    case OK_FINGERPAD_POSES_HAND:
+      for (int f = 0; f < 5; ++f) {
+        fs_pose_hand(o, o.pad_pos[f], o.pad_quat[f], tmp);
+        for (int j = 0; j < 7; ++j) PUT(tmp[j]);
+      }
+      break;
+    case OK_EPISODE_TIME: PUT((float)o.epi_old * c->control_dt); break;
+    case OK_OBJECT_POS: for (int j = 0; j < 3; ++j) PUT(o.box[j]); break;
+    case OK_OBJECT_VEL: for (int j = 0; j < 3; ++j) PUT(o.box[7 + j]); break;
+    case OK_FINGER_TO_OBJECT_DISTANCES: for (int f = 0; f < 5; ++f) PUT(o.d_f2o[f]); break;
+    case OK_AVG_FINGER_TO_OBJECT_DISTANCE:
+      PUT((o.d_f2o[0] + o.d_f2o[1] + o.d_f2o[2] + o.d_f2o[3] + o.d_f2o[4]) / 5.0f);
+      break;
+    case OK_FINGER_TO_OBJECT_HEIGHT_DIFF: for (int f = 0; f < 5; ++f) PUT(o.hdiff[f]); break;
+    case OK_AVG_FINGER_TO_OBJECT_HEIGHT_DIFF:
+      PUT((o.hdiff[0] + o.hdiff[1] + o.hdiff[2] + o.hdiff[3] + o.hdiff[4]) / 5.0f);
+      break;
+    case OK_HAND_TO_OBJECT_DISTANCE: PUT(o.h2o); break;
+    case OK_FINGERPAD_DISTANCES: for (int j = 0; j < 10; ++j) PUT(o.fpd[j]); break;
+    case OK_FIRST_THREE_FINGERPAD_CENTROID: for (int j = 0; j < 3; ++j) PUT(o.centroid[j]); break;
+    case OK_THUMB_CONTACT: PUT(o.thumb); break;
+    case OK_OTHER_FINGERS_CONTACT: PUT(o.other); break;
+    case OK_GRASP_STATE: PUT(o.grasp); break;
+    case OK_GRASP_DURATION: PUT(o.grasp_dur); break;
+    case OK_CURRENT_STAGE: PUT(o.stage); break;
+    case OK_TIME_IN_STAGE: PUT(o.tis); break;
+    case OK_STAGE_PROGRESS: PUT(o.progress); break;
+  }
+#undef PUT
+  return row;
+}
+
+LP_DEV void fs_env_step(const LaneModel* m, const FusedConfig* c, int i, int n,
+                        float* rows_f, int* rows_i, const float* act, const float* rst,
+                        const float* drn, const float* spw, float* rows_c, float* obs,
+                        float* rew, int* msk, float* cmp) {
+  const int nc = c->nc;
+  const float dt = c->control_dt;
+#define FR(r) rows_f[(size_t)(r) * n + i]
+#define IR(r) rows_i[(size_t)(r) * n + i]
+  FsObs o;
+  // ---- load the whole column first (rows_f / rows_i are written in place)
+  float q0[LP_MAXB], qd[LP_MAXB], spawn[3], drv[4], drv_old[4];
+  for (int j = 0; j < c->n_act; ++j) o.acts[j] = act[(size_t)j * n + i];
+  for (int j = 0; j < 18; ++j) o.t[j] = FR(c->f_active_prev_targets + j);
+  for (int j = 0; j < m->nb; ++j) { q0[j] = FR(c->f_q + j); qd[j] = FR(c->f_qd + j); }
+  for (int j = 0; j < 3; ++j) { o.box[j] = FR(c->f_box_pos + j); o.box[7 + j] = FR(c->f_box_linvel + j);
+                                o.box[10 + j] = FR(c->f_box_angvel + j); spawn[j] = spw[(size_t)j * n + i]; }
+  for (int j = 0; j < 4; ++j) { o.box[3 + j] = FR(c->f_box_quat + j); drv[j] = FR(c->f_dr[j]); drv_old[j] = drv[j]; }
+  float prev_cb[8], prev_fvel[20], prev_hvel[3], prev_havel[3], init_box[3];
+  int dur_old[8], prev_contacts[8], sflag_old[8], fflag_old[8];
+  for (int b = 0; b < nc; ++b) {
+    prev_cb[b] = FR(c->f_prev_contact_binary + b);
+    dur_old[b] = IR(c->i_contact_duration_steps + b);
+    prev_contacts[b] = IR(c->i_prev_contacts + b);
+  }
+  for (int j = 0; j < 20; ++j) prev_fvel[j] = FR(c->f_prev_finger_dof_vel + j);
+  for (int j = 0; j < 3; ++j) {
+    prev_hvel[j] = FR(c->f_prev_hand_vel + j);
+    prev_havel[j] = FR(c->f_prev_hand_ang_vel + j);
+    init_box[j] = FR(c->f_initial_box_pos + j);
+  }
+  o.epi_old = IR(c->i_episode_step_count);
+  for (int j = 0; j < c->n_sflags; ++j) sflag_old[j] = IR(c->sflag_row[j]);
+  for (int j = 0; j < c->n_fflags; ++j) fflag_old[j] = IR(c->fflag_row[j]);
+  const int stage_old = IR(c->i_current_stage);
+  const int sds_old = IR(c->i_success_duration_steps);
+  const float tis_old = FR(c->f_time_in_stage);
+  const float scd_old = FR(c->f_stage_contact_duration);
+  float prev_t[18];
+  for (int j = 0; j < 18; ++j) prev_t[j] = o.t[j];
+
+  // ---- action pipeline (envs/action.py process_actions)
+  int ofs = 0;
+  for (int part = 0; part < 2; ++part) {
+    bool on = part == 0 ? c->controls_base : c->controls_fingers;
+    if (!on) continue;
+    int base = part == 0 ? 0 : 6, cnt = part == 0 ? 6 : 12;
+    for (int j = 0; j < cnt; ++j) {
+      int d = base + j;
+      float a = o.acts[ofs + j];
+      o.t[d] = c->position_mode ? (a + 1.0f) * 0.5f * (c->hi[d] - c->lo[d]) + c->lo[d]
+                                : prev_t[d] + a * c->md[d];
+    }
+    ofs += cnt;
+  }
+  if (!c->position_mode)
+    for (int d = 0; d < 18; ++d) o.t[d] = fminf(fmaxf(o.t[d], c->lo[d]), c->hi[d]);
+  for (int f = 0; f < c->n_filters; ++f) {
+    for (int d = 0; d < 18; ++d) {
+      if (c->filters[f] == 1)
+        o.t[d] = prev_t[d] + fminf(fmaxf(o.t[d] - prev_t[d], -c->md[d]), c->md[d]);
+      else
+        o.t[d] = fminf(fmaxf(o.t[d], c->lo[d]), c->hi[d]);
+    }
+  }
+  for (int d = 0; d < m->nb; ++d)
+    o.full[d] = c->cscale[d] != 0.f ? o.t[c->csrc[d]] * c->cscale[d] : 0.f;
+
+  // ---- physics + final FK
+  float cf[LP_MAXB * 3], bf[3] = {0.f, 0.f, 0.f};
+  for (int j = 0; j < m->nb * 3; ++j) cf[j] = 0.f;
+  for (int j = 0; j < m->nb; ++j) o.q[j] = q0[j];
+  LpScratch s;
+  for (int it = 0; it < m->total_substeps; ++it)
+    lp_substep(m, o.q, qd, o.box, o.full, spawn, drv, cf, bf, &s);
+  LpFk* k = &s.fk;
+  lp_fk(m, o.q, qd, spawn, k);
+  const int hb = c->hand_b;
+  for (int j = 0; j < 3; ++j) o.hand_pos[j] = k->pos[hb][j];
+  for (int j = 0; j < 4; ++j) o.hand_quat[j] = k->quat[hb][j];
+  float hand_lin[3], hand_ang[3];
+  for (int j = 0; j < 3; ++j) { hand_lin[j] = k->lin[hb][j]; hand_ang[j] = k->ang[hb][j]; }
+  for (int f = 0; f < 5; ++f) {
+    lp_site(m, k, c->tip_site[f], o.tip_pos[f], o.tip_quat[f]);
+    lp_site(m, k, c->pad_site[f], o.pad_pos[f], o.pad_quat[f]);
+  }
+
+  // ---- default observations (prev_dof_pos == pre-physics q)
+  for (int j = 0; j < m->nb; ++j) o.dvel[j] = (o.q[j] - q0[j]) / dt;
+  for (int b = 0; b < nc; ++b) {
+    const float* f3 = &cf[3 * c->contact_body[b]];
+    for (int j = 0; j < 3; ++j) o.cfc[b][j] = f3[j];
+    o.mags[b] = sqrtf(f3[0] * f3[0] + f3[1] * f3[1] + f3[2] * f3[2]);
+    o.binary[b] = o.mags[b] > c->contact_binary_threshold ? 1.f : 0.f;
+    bool started = o.binary[b] > 0.5f && prev_cb[b] < 0.5f;
+    bool active = o.binary[b] > 0.5f;
+    o.new_dur[b] = started ? 1 : (active ? dur_old[b] + 1 : 0);
+  }
+
+  // ---- BlindGrasping task step (blind_grasping.py lane_step)
+  const float* bpos = o.box;
+  const float* bvel = o.box + 7;
+  for (int f = 0; f < 5; ++f) {
+    o.d_f2o[f] = fs_norm3(o.pad_pos[f], bpos);
+    o.hdiff[f] = fabsf(o.pad_pos[f][2] - bpos[2]);
+  }
+  o.h2o = fs_norm3(o.hand_pos, bpos);
+  for (int a = 0, e = 0; a < 5; ++a)
+    for (int b = a + 1; b < 5; ++b) o.fpd[e++] = fs_norm3(o.pad_pos[a], o.pad_pos[b]);
+  for (int j = 0; j < 3; ++j)
+    o.centroid[j] = (o.pad_pos[0][j] + o.pad_pos[1][j] + o.pad_pos[2][j]) / 3.0f;
+  const float zero3[3] = {0.f, 0.f, 0.f};
+  bool box_has = fs_norm3(bf, zero3) > c->bg_contact_thr;
+  bool fingc[5], fb[5];
+  int num_on_box = 0;
+  for (int f = 0; f < 5; ++f) {
+    fingc[f] = o.binary[f] > 0.5f;
+    fb[f] = fingc[f] && box_has && (o.d_f2o[f] < c->bg_prox_thr);
+    num_on_box += fb[f] ? 1 : 0;
+  }
+  bool thumb_c = fb[0], other_c = fb[1] || fb[2] || fb[3] || fb[4];
+  bool grasp = thumb_c && other_c;
+  o.thumb = thumb_c ? 1.f : 0.f;
+  o.other = other_c ? 1.f : 0.f;
+  o.grasp = grasp ? 1.f : 0.f;
+  bool cond = (bpos[2] > c->bg_height_thr) && (num_on_box >= c->bg_min_fingers);
+  int steps = cond ? sds_old + 1 : 0;
+  o.grasp_dur = (float)steps * dt;
+  int stage = stage_old;
+  float tis = tis_old + dt;
+  bool thumb_and_other = fingc[0] && (fingc[1] || fingc[2] || fingc[3] || fingc[4]);
+  bool in_s2 = stage == 2;
+  float scd = in_s2 ? (thumb_and_other ? scd_old + dt : 0.f) : scd_old;
+  bool s1c = (stage == 1) && (tis >= c->bg_s1_dur);
+  bool s2c = (in_s2 && (scd >= c->bg_s2_contact_thr)) || (in_s2 && (tis >= c->bg_s2_dur));
+  if (s1c) stage = 2;
+  if (s2c) stage = 3;
+  if (s1c || s2c) { tis = 0.f; scd = 0.f; }
+  o.stage = (float)stage;
+  o.tis = tis;
+  o.progress = stage == 1 ? fs_clip01(tis / c->bg_s1_dur)
+                          : (stage == 2 ? fs_clip01(tis / c->bg_s2_dur) : 1.f);
+  bool hdiff3_ok = (o.hdiff[0] <= c->bg_tol_h) && (o.hdiff[1] <= c->bg_tol_h) &&
+                   (o.hdiff[2] <= c->bg_tol_h);
+  float centroid_dist = fs_norm3(o.centroid, bpos);
+  float drift = fs_norm3(bpos, init_box);
+  float velmag = fs_norm3(bvel, zero3);
+  bool pregrasp_ok = hdiff3_ok && (centroid_dist <= c->bg_tol_c) &&
+                     (drift <= c->bg_tol_drift) && (velmag <= c->bg_tol_vel);
+  bool fail[FC_COUNT], succ[SC_COUNT];
+  fail[FC_BOX_TOO_FAR] = o.h2o > c->bg_max_box_dist;
+  fail[FC_S1_PREGRASP_FAILED] = s1c && !pregrasp_ok;
+  fail[FC_S2_CONTACT_FAILED] = s2c && !grasp;
+  fail[FC_S3_GRASP_LOST] = (stage == 3) && !grasp;
+  succ[SC_GRASP_LIFT_SUCCESS] = steps >= c->bg_threshold_steps;
+  float min_tip = o.tip_pos[0][2];
+  for (int f = 1; f < 5; ++f) min_tip = fminf(min_tip, o.tip_pos[f][2]);
+  fail[FC_HITTING_GROUND] = c->has_height_safety &&
+      ((o.hand_pos[2] < c->handbase_threshold) || (min_tip < c->fingertip_threshold));
+
+  // ---- termination (termination.py evaluate_termination)
+  const int new_count = o.epi_old + 1;
+  bool ep_succ = false, ep_fail = false;
+  int sflag_new[8], fflag_new[8];
+  for (int j = 0; j < c->n_sflags; ++j) {
+    bool cr = succ[c->sflag_crit[j]];
+    sflag_new[j] = ((!ep_succ && cr) || sflag_old[j] != 0) ? 1 : 0;
+    ep_succ = ep_succ || cr;
+  }
+  for (int j = 0; j < c->n_fflags; ++j) {
+    bool cr = fail[c->fflag_crit[j]];
+    fflag_new[j] = ((!ep_fail && cr) || fflag_old[j] != 0) ? 1 : 0;
+    ep_fail = ep_fail || cr;
+  }
+  bool timeout = new_count >= c->max_episode_length - 1;
+  bool done = ep_succ || ep_fail || timeout;
+  bool succ_t = ep_succ && done;
+  bool fail_t = ep_fail && !ep_succ && done;
+  bool tout_t = timeout && !ep_succ && !ep_fail && done;
+  float term_reward = (succ_t ? 1.f : 0.f) * c->success_reward -
+                      (fail_t ? 1.f : 0.f) * c->failure_penalty -
+                      (tout_t ? 1.f : 0.f) * c->timeout_penalty;
+
+  // ---- rewards: common terms, task terms, weighted sum in sorted-name order
+  float r[RT_COUNT];
+  float fvel[20], dv[20];
+  for (int j = 0; j < 20; ++j) { fvel[j] = o.dvel[6 + j]; dv[j] = fvel[j] - prev_fvel[j]; }
+  float nf = 0.f, ndf = 0.f;
+  for (int j = 0; j < 20; ++j) { nf += fvel[j] * fvel[j]; ndf += dv[j] * dv[j]; }
+  r[RT_ALIVE] = 1.f;
+  r[RT_HEIGHT_SAFETY] = fs_clip01(1.0f - expf(-(min_tip - 0.02f) * 20.0f));
+  r[RT_FINGER_VELOCITY] = expf(-0.1f * sqrtf(nf));
+  r[RT_HAND_VELOCITY] = expf(-0.2f * fs_norm3(hand_lin, zero3));
+  r[RT_HAND_ANGULAR_VELOCITY] = expf(-0.2f * fs_norm3(hand_ang, zero3));
+  float over = 0.f;
+  for (int j = 0; j < 20; ++j) {
+    float rng = c->finger_upper[j] - c->finger_lower[j];
+    if (rng > 0.f) over += fs_clip01(fabsf(2.0f * (o.q[6 + j] - c->finger_lower[j]) / rng - 1.0f) - 0.8f);
+  }
+  r[RT_JOINT_LIMIT] = 1.0f - over / 20.0f;
+  r[RT_FINGER_ACCELERATION] = expf(-2.0f * sqrtf(ndf));
+  r[RT_HAND_ACCELERATION] = expf(-0.5f * fs_norm3(hand_lin, prev_hvel));
+  r[RT_HAND_ANGULAR_ACCELERATION] = expf(-0.5f * fs_norm3(hand_ang, prev_havel));
+  int contacts[8];
+  float changes = 0.f;
+  for (int b = 0; b < nc; ++b) {
+    contacts[b] = o.mags[b] > 0.1f ? 1 : 0;
+    changes += (contacts[b] != (prev_contacts[b] != 0)) ? 1.f : 0.f;
+  }
+  r[RT_CONTACT_STABILITY] = expf(-changes);
+  float s1 = stage == 1 ? 1.f : 0.f, s2 = stage == 2 ? 1.f : 0.f, s3 = stage == 3 ? 1.f : 0.f;
+  float avg_h = (o.hdiff[0] + o.hdiff[1] + o.hdiff[2] + o.hdiff[3] + o.hdiff[4]) / 5.0f;
+  r[RT_S1_HEIGHT_ALIGNMENT] = expf(-c->bg_d_ha * avg_h) * s1;
+  r[RT_S1_CENTROID_POSITIONING] = expf(-c->bg_d_cp * centroid_dist) * s1;
+  r[RT_S1_OBJECT_STABILITY] = expf(-c->bg_d_os * (drift + velmag)) * s1;
+  float h0 = o.pad_pos[0][2], h1 = o.pad_pos[1][2], h2 = o.pad_pos[2][2];
+  float hm = (h0 + h1 + h2) / 3.0f;
+  float hvar = ((h0 - hm) * (h0 - hm) + (h1 - hm) * (h1 - hm) + (h2 - hm) * (h2 - hm)) / 2.0f;
+  r[RT_S1_FINGER_HEIGHT_CONSISTENCY] = expf(-c->bg_d_fhc * hvar) * s1;
+  r[RT_S1_THUMB_ROTATION] = expf(-5.0f * fabsf(o.q[6] - FS_HALF_PI)) * s1;
+  r[RT_S2_THUMB_CONTACT] = o.thumb * s2;
+  r[RT_S2_OTHER_FINGERS_CONTACT] = o.other * s2;
+  r[RT_S2_GRASP_ACHIEVEMENT] = o.grasp * s2;
+  float min_dist = fs_norm3(o.tip_pos[0], bpos);
+  for (int f = 1; f < 5; ++f) min_dist = fminf(min_dist, fs_norm3(o.tip_pos[f], bpos));
+  r[RT_S2_FINGERPAD_PROXIMITY] = expf(-c->bg_d_fpp * fmaxf(min_dist, c->bg_min_reward_dist)) * s2;
+  float bv = 0.f;
+  for (int j = 0; j < 6; ++j) bv += o.dvel[j] * o.dvel[j];
+  r[RT_S2_BASE_STABILITY] = expf(-c->bg_d_bs * sqrtf(bv)) * s2;
+  r[RT_S3_OBJECT_HEIGHT] = fs_clip01((bpos[2] - c->bg_box_z) / c->bg_s3_den) * s3;
+  r[RT_S3_GRASP_MAINTENANCE] = o.grasp * s3;
+  r[RT_S3_GRASP_DURATION] = fs_clip01(o.grasp_dur / c->bg_cdt) * s3;
+  r[RT_S1_COMPLETION] = (s1c && !fail[FC_S1_PREGRASP_FAILED]) ? 1.f : 0.f;
+  r[RT_S2_COMPLETION] = (s2c && !fail[FC_S2_CONTACT_FAILED]) ? 1.f : 0.f;
+  r[RT_PENETRATION_PENALTY] = fmaxf(c->bg_pen_thr - min_dist, 0.f) * c->bg_pen_scale;
+  float under = 0.f;
+  for (int f = 0; f < 5; ++f) {
+    bool in_fp = (fabsf(o.tip_pos[f][0] - bpos[0]) < c->bg_ub_half) &&
+                 (fabsf(o.tip_pos[f][1] - bpos[1]) < c->bg_ub_half);
+    under += (in_fp ? 1.f : 0.f) * fmaxf(c->bg_ub_margin - o.tip_pos[f][2], 0.f);
+  }
+  r[RT_UNDER_BOX_PENALTY] = under * (bpos[2] < c->bg_ub_ground_z ? 1.f : 0.f);
+  float total = 0.f;
+  for (int j = 0; j < c->n_rew; ++j) total += r[c->rew_term[j]] * c->rew_w[j];
+
+  // ---- output rows (terminal obs: computed before the merge)
+  int row = 0;
+  for (int j = 0; j < c->n_obs_keys; ++j) row = fs_put_obs(c->obs_keys[j], o, c, obs, row, n, i);
+  rew[i] = total + term_reward;
+  msk[i] = done;
+  msk[(size_t)n + i] = succ_t;
+  msk[(size_t)2 * n + i] = fail_t;
+  msk[(size_t)3 * n + i] = tout_t;
+  for (int j = 0; j < c->n_comp; ++j) {
+    int ti = c->comp_idx[j];
+    float v = 0.f;
+    switch (c->comp_kind[j]) {
+      case CK_RAW: v = r[ti]; break;
+      case CK_WEIGHTED: {
+        for (int e = 0; e < c->n_rew; ++e) if (c->rew_term[e] == ti) v = r[ti] * c->rew_w[e];
+      } break;
+      case CK_TOTAL: v = total; break;
+      case CK_TERM_SUCCESS: v = succ_t ? 1.f : 0.f; break;
+      case CK_TERM_SUCCESS_W: v = (succ_t ? 1.f : 0.f) * c->success_reward; break;
+      case CK_TERM_FAILURE: v = fail_t ? 1.f : 0.f; break;
+      case CK_TERM_FAILURE_W: v = -(fail_t ? 1.f : 0.f) * c->failure_penalty; break;
+      case CK_TERM_TIMEOUT: v = tout_t ? 1.f : 0.f; break;
+      case CK_TERM_TIMEOUT_W: v = -(tout_t ? 1.f : 0.f) * c->timeout_penalty; break;
+    }
+    cmp[(size_t)j * n + i] = v;
+  }
+
+  // ---- reset rows, spawn-projected (only the done envs read them)
+  float rdof[LP_MAXB], rbpos[3], rbquat[4];
+  for (int j = 0; j < m->nb; ++j) rdof[j] = rst[(size_t)j * n + i];
+  for (int j = 0; j < 3; ++j) rbpos[j] = rst[(size_t)(m->nb + j) * n + i];
+  for (int j = 0; j < 4; ++j) rbquat[j] = rst[(size_t)(m->nb + 3 + j) * n + i];
+  if (done && c->has_proj) {
+    float mz = lp_min_site_z(m, rdof, c->proj_spawn, c->proj_site_mask, k);
+    rdof[2] = rdof[2] + fmaxf(0.f, c->proj_clear - mz);
+  }
+
+  // ---- done-masked reset merge into the carried rows (in place)
+  for (int j = 0; j < m->nb; ++j) {
+    FR(c->f_q + j) = done ? rdof[j] : o.q[j];
+    FR(c->f_qd + j) = done ? 0.f : qd[j];
+    rows_c[(size_t)(c->c_full_dof_targets + j) * n + i] = done ? rdof[j] : o.full[j];
+  }
+  for (int j = 0; j < m->nb * 3; ++j)
+    rows_c[(size_t)(c->c_body_contact_force + j) * n + i] = done ? 0.f : cf[j];
+  for (int j = 0; j < 3; ++j) {
+    FR(c->f_box_pos + j) = done ? rbpos[j] : o.box[j];
+    FR(c->f_box_linvel + j) = done ? 0.f : o.box[7 + j];
+    FR(c->f_box_angvel + j) = done ? 0.f : o.box[10 + j];
+    FR(c->f_prev_hand_vel + j) = done ? 0.f : hand_lin[j];
+    FR(c->f_prev_hand_ang_vel + j) = done ? 0.f : hand_ang[j];
+    FR(c->f_initial_box_pos + j) = done ? rbpos[j] : init_box[j];
+  }
+  for (int j = 0; j < 4; ++j) {
+    FR(c->f_box_quat + j) = done ? rbquat[j] : o.box[3 + j];
+    FR(c->f_dr[j]) = done ? drn[(size_t)j * n + i] : drv_old[j];
+  }
+  for (int j = 0; j < 18; ++j) FR(c->f_active_prev_targets + j) = done ? rdof[c->act_idx[j]] : o.t[j];
+  for (int j = 0; j < c->n_act; ++j) FR(c->f_prev_actions + j) = done ? 0.f : o.acts[j];
+  for (int b = 0; b < nc; ++b) {
+    FR(c->f_prev_contact_binary + b) = done ? 0.f : o.binary[b];
+    IR(c->i_contact_duration_steps + b) = done ? 0 : o.new_dur[b];
+    IR(c->i_prev_contacts + b) = done ? 0 : contacts[b];
+  }
+  for (int j = 0; j < 20; ++j) FR(c->f_prev_finger_dof_vel + j) = done ? 0.f : fvel[j];
+  IR(c->i_episode_step_count) = done ? 0 : new_count;
+  for (int j = 0; j < c->n_sflags; ++j) IR(c->sflag_row[j]) = done ? 0 : sflag_new[j];
+  for (int j = 0; j < c->n_fflags; ++j) IR(c->fflag_row[j]) = done ? 0 : fflag_new[j];
+  FR(c->f_time_in_stage) = done ? 0.f : tis;
+  FR(c->f_stage_contact_duration) = done ? 0.f : scd;
+  IR(c->i_current_stage) = done ? 1 : stage;
+  IR(c->i_just_t2) = done ? 0 : (int)s1c;
+  IR(c->i_just_t3) = done ? 0 : (int)s2c;
+  IR(c->i_success_conditions_met) = done ? 0 : (int)cond;
+  IR(c->i_success_duration_steps) = done ? 0 : steps;
+#undef FR
+#undef IR
+}
+
+#ifdef __CUDACC__
+__global__ void fused_step_kernel(const LaneModel* __restrict__ m,
+                                  const FusedConfig* __restrict__ c, float* rows_f,
+                                  int* rows_i, const float* __restrict__ act,
+                                  const float* __restrict__ rst, const float* __restrict__ drn,
+                                  const float* __restrict__ spw, float* __restrict__ rows_c,
+                                  float* __restrict__ obs, float* __restrict__ rew,
+                                  int* __restrict__ msk, float* __restrict__ cmp, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  fs_env_step(m, c, i, n, rows_f, rows_i, act, rst, drn, spw, rows_c, obs, rew, msk, cmp);
+}
+#endif
+
+extern "C" {
+
+int fused_config_layout(LP_LAYOUT_ARGS) {
+  LP_STRUCT_LAYOUT(FusedConfig, FUSED_CONFIG_FIELDS)
+}
+
+int lane_model_layout(LP_LAYOUT_ARGS) {
+  LP_STRUCT_LAYOUT(LaneModel, LANE_MODEL_FIELDS)
+}
+
+#ifdef __CUDACC__
+int fused_step_launch(const void* model, const void* cfg, float* rows_f, int* rows_i,
+                      const float* act, const float* rst, const float* drn, const float* spw,
+                      float* rows_c, float* obs, float* rew, int* msk, float* cmp, int n,
+                      void* stream) {
+  int blocks = (n + FS_THREADS - 1) / FS_THREADS;
+  fused_step_kernel<<<blocks, FS_THREADS, 0, (cudaStream_t)stream>>>(
+      (const LaneModel*)model, (const FusedConfig*)cfg, rows_f, rows_i, act, rst, drn, spw,
+      rows_c, obs, rew, msk, cmp, n);
+  return (int)cudaGetLastError();
+}
+#else
+// Host build of the same per-env code (no CUDA): every env in a loop.
+int fused_step_host(const void* model, const void* cfg, float* rows_f, int* rows_i,
+                    const float* act, const float* rst, const float* drn, const float* spw,
+                    float* rows_c, float* obs, float* rew, int* msk, float* cmp, int n) {
+  for (int i = 0; i < n; ++i)
+    fs_env_step((const LaneModel*)model, (const FusedConfig*)cfg, i, n, rows_f, rows_i, act,
+                rst, drn, spw, rows_c, obs, rew, msk, cmp);
+  return 0;
+}
+#endif
+
+}  // extern "C"
