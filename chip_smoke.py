@@ -18,20 +18,36 @@ failing the run when it fails:
            step of the lane-physics kernel against the plain engine, and
            min_site_z against the plain FK.
 4. K1      one fused step at 4096 envs against the plain fused step.
-5. main    the port's main path, counted: make_env -> reset -> 600 fused
+5. K3      the SPD solve kernel on the 4096 systems (A, rhs) of one Coriolis
+           substep from phase 3's contact-rich state, against its plain
+           version (relative 1e-5); both also against a float64 solve.
+6. coriolis one Coriolis control step at 4096 envs through make_control_step
+           (the engine's ops with K3) against the plain Coriolis sequence:
+           q, qd, box, contact force within 1e-3 relative.
+7. main    the port's main path, counted: make_env -> reset -> 600 fused
            steps of uniform random actions in [-1, 1] (episodeLength 500, so
            auto-resets fire), then 10 unfused (evaluation-path) steps.
            Launch counters are zeroed just before and read just after.
-6. numbers env-steps/s of the 600-step rollout and each kernel's ms per
-           launch (CUDA events, after warm-up) beside its plain version's ms
-           and its bound on the card (f32 operations counted from the kernel
-           code for these inputs); the device's busy share over 20 fused
-           steps under torch.profiler.
+8. train   the CLI trainer (dexrobot_isaac_tpu_torch/train.py run_train)
+           in-process on BlindGrasping at 4096 envs, default config (horizon
+           16): 3 iterations on the fused step (K1 launches = 3 x 16), then 1
+           with sim.coriolis=true fused=off (K3 launches = 16 x 16), then
+           evaluation (test=true) from the checkpoint just written (K2
+           launches > 0); counters zeroed before and read after each run.
+           Metrics (KL, mean reward) and params finite; training env-steps/s
+           with each iteration's rollout and update time.
+9. numbers env-steps/s of the 600-step rollout and each kernel's ms per
+           launch (CUDA events, after warm-up) beside its plain version's ms,
+           its bound on the card (bytes or f32 operations counted for these
+           inputs) and, where one PyTorch call computes the same function,
+           that call's ms; the device's busy share over 20 fused steps under
+           torch.profiler.
 
 The line before the last is a JSON object of the kernels; the last line is
 the run's result: {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -92,9 +108,12 @@ def main() -> int:
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    from dexrobot_isaac_tpu_torch import train as cli
     from dexrobot_isaac_tpu_torch.envs import fused_step
     from dexrobot_isaac_tpu_torch.factory import make_env
+    from dexrobot_isaac_tpu_torch.ops import linalg
     from dexrobot_isaac_tpu_torch.physics import lane_step
+    from dexrobot_isaac_tpu_torch.physics.engine import HandPhysics
     from dexrobot_isaac_tpu_torch.utils import kernel_build as kb
     from dexrobot_isaac_tpu_torch.utils.config import load_config
 
@@ -214,7 +233,49 @@ def main() -> int:
           and k1["rew"] <= 1e-3 and k1["comp"] <= 1e-3 and k1["rows_f"] <= 1e-3 and ri_equal,
           "K1 disagrees with the plain fused step")
 
-    # ---------------------------------------------------------------- 5 main path
+    # ---------------------------------------------------------------- 5 K3
+    eng_c = HandPhysics(model=c.model, params=dataclasses.replace(c.engine.params, coriolis=True),
+                        device=dev)
+    systems = []
+
+    def capture(A, b):
+        systems.append((A, b))
+        return linalg.spd_solve_plain(A, b)
+
+    eng_c._substep(ph, tgt, spawn, dr, capture)  # one Coriolis substep's systems
+    A3, b3 = systems[0]
+    x_k3 = linalg.spd_solve(A3, b3)
+    x_p3 = linalg.spd_solve_plain(A3, b3)
+    x_64 = torch.linalg.solve(A3.double(), b3.double()[..., None])[..., 0]
+    torch.cuda.synchronize()
+    k3_err = rel_err(x_k3, x_p3)
+    k3_abs = float((x_k3 - x_p3).abs().max())
+    log(f"[K3] spd_solve vs plain on {N_ENVS} systems (26x26) of one Coriolis substep: "
+        f"relative err {k3_err:.2e} (tol 1e-5); against float64: kernel "
+        f"{rel_err(x_k3.double(), x_64):.2e}, plain {rel_err(x_p3.double(), x_64):.2e}")
+    check(k3_err <= 1e-5, "K3 disagrees with the plain SPD solve beyond 1e-5")
+
+    # ---------------------------------------------------------------- 6 coriolis
+    cor_k = eng_c.make_control_step(c.physics_steps_per_control)
+    cor_p = eng_c.plain_control_step(c.physics_steps_per_control)
+    kb.reset_launches()
+    cst, cinfo, _ = cor_k(ph, tgt, spawn, dr)
+    torch.cuda.synchronize()
+    cor_launches = kb.LAUNCHES["spd_solve"]
+    pcst, pcinfo, _ = cor_p(ph, tgt, spawn, dr)
+    torch.cuda.synchronize()
+    cor = {"q": rel_err(cst.q, pcst.q), "qd": rel_err(cst.qd, pcst.qd),
+           "box": rel_err(box(cst), box(pcst)),
+           "contact_force": rel_err(cinfo.body_contact_force, pcinfo.body_contact_force)}
+    cor_vs_k2 = rel_err(pcst.qd, pst.qd)
+    log(f"[coriolis] control step through K3 vs the plain Coriolis sequence at {N_ENVS} envs: "
+        "relative err " + " ".join(f"{k} {v:.2e}" for k, v in cor.items())
+        + f"; spd_solve launches {cor_launches}; qd with vs without the bias differs by "
+        f"{cor_vs_k2:.2e} relative")
+    check(all(v <= 1e-3 for v in cor.values()) and cor_launches == 16,
+          "the Coriolis control step through K3 disagrees with its plain version")
+
+    # ---------------------------------------------------------------- 7 main path
     env = make_env(load_config(["task=BlindGrasping", f"numEnvs={N_ENVS}"]), seed=42, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.synchronize()
@@ -250,8 +311,63 @@ def main() -> int:
     check(launches["fused_step"] == ROLLOUT_STEPS and launches["control_step"] == 10
           and launches["min_site_z"] >= 1, f"main path missed a kernel: {launches}")
 
-    # ---------------------------------------------------------------- 6 numbers
-    # kernel timings on the phase-3/4 inputs (launches here are not counted).
+    # ---------------------------------------------------------------- 8 train
+    # the CLI trainer in-process; run directories under ROOT/runs_all
+    os.environ["DEXHAND_RUNS_DIR"] = ROOT
+    base = ["task=BlindGrasping", f"numEnvs={N_ENVS}", "train.logging.noLogFile=true",
+            "train.params.config.log_interval=1"]
+
+    def train_run(args, expect_fused):
+        sess = cli.build(load_config(base + args))
+        check((sess.fused is not None) == expect_fused, f"fused step choice for {args}")
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.run_test(sess) if sess.test_mode else cli.run_train(sess)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(kb.LAUNCHES)
+        check(rc == 0, f"the CLI run {args} returned {rc}")
+        return sess, counts, secs
+
+    horizon = 16
+    tr, tr_launches, tr_s = train_run(["maxIterations=3", "train.params.config.save_frequency=3"],
+                                      True)
+    finite_params = lambda sess: all(bool(torch.isfinite(v).all())
+                                     for v in sess.ppo.params.values())
+    for st in tr.stats:
+        log(f"[train] fused iteration {st['iteration']}: {st['env_steps_per_s']:,.0f} env-steps/s,"
+            f" rollout {st['rollout_s'] * 1e3:.1f} ms, update {st['update_s'] * 1e3:.1f} ms "
+            f"(device time between CUDA events); kl {st['kl']:.4f}, reward {st['reward_mean']:.3f}")
+    steady = tr.stats[1:]
+    train_sps = sum(st["env_steps_per_s"] for st in steady) / len(steady)
+    log(f"[train] 3 fused iterations x {horizon} steps x {N_ENVS} envs in {tr_s:.2f} s; steady "
+        f"(iterations 2-3) {train_sps:,.0f} env-steps/s; launches {tr_launches}")
+    check(tr_launches["fused_step"] == 3 * horizon and finite_params(tr)
+          and all(np.isfinite(list(st.values())).all() for st in tr.stats),
+          f"fused training missed K1 or went non-finite: {tr_launches}")
+    ckpt = os.path.join(tr.run_dir, "nn", "latest.pt")
+
+    co, co_launches, co_s = train_run(["maxIterations=1", "sim.coriolis=true",
+                                       "train.params.config.fused=off"], False)
+    cst_ = co.stats[-1]
+    log(f"[train] Coriolis iteration (unfused, K3): {co_s:.2f} s, "
+        f"{cst_['env_steps_per_s']:,.0f} env-steps/s, rollout {cst_['rollout_s'] * 1e3:.1f} ms, "
+        f"update {cst_['update_s'] * 1e3:.1f} ms; kl {cst_['kl']:.4f}, reward "
+        f"{cst_['reward_mean']:.3f}; launches {co_launches}")
+    check(co_launches["spd_solve"] == horizon * 16 and co_launches["fused_step"] == 0
+          and finite_params(co) and np.isfinite(list(cst_.values())).all(),
+          f"the Coriolis iteration missed K3 or went non-finite: {co_launches}")
+
+    ev, ev_launches, ev_s = train_run(["test=true", f"checkpoint={ckpt}",
+                                       f"testGamesNum={N_ENVS}", "env.episodeLength=4"], False)
+    log(f"[train] eval from {os.path.relpath(ckpt, ROOT)}: {ev.stats[-1]} in {ev_s:.2f} s; "
+        f"launches {ev_launches}")
+    check(ev_launches["control_step"] > 0 and ev.stats[-1]["episodes"] >= N_ENVS,
+          f"evaluation missed K2: {ev_launches}")
+
+    # ---------------------------------------------------------------- 9 numbers
+    # kernel timings on the phase-3/4/5 inputs (launches here are not counted).
     # K1 writes its state rows in place, so each timed call first restores
     # them: two device copies of 2.7 MB, a few microseconds of its time.
     saved = dict(kb.LAUNCHES)
@@ -271,6 +387,11 @@ def main() -> int:
     k2_plain_ms = cuda_ms(lambda: plain_cs(ph, tgt, spawn, dr), 1, 1)
     msz_ms = cuda_ms(lambda: lane_step.min_site_z(c.engine, ph.q, env._spawn, tips), 50)
     msz_plain_ms = cuda_ms(lambda: c.engine.min_site_z(ph.q, spawn, tips), 5)
+    k3_ms = cuda_ms(lambda: linalg.spd_solve(A3, b3), 50)
+    k3_plain_ms = cuda_ms(lambda: linalg.spd_solve_plain(A3, b3), 20)
+    k3_lib_ms = cuda_ms(lambda: torch.linalg.solve(A3, b3[..., None]), 20)
+    log(f"[numbers] spd_solve library yardsticks: torch.linalg.solve {k3_lib_ms:.4f} ms, "
+        f"cholesky + cholesky_solve (the plain version) {k3_plain_ms:.4f} ms")
 
     # where a rollout step's time goes: torch.profiler over 20 fused steps
     from torch.profiler import ProfilerActivity, profile
@@ -304,24 +425,33 @@ def main() -> int:
     b_k1 = nbytes(rf, ri, act_T, rst, drn, spw, *ko, rf, ri)
     b_k2 = 4 * N_ENVS * (26 * 3 + 3 + 13 + 4 + 26 * 2 + 13 + 78 + 3 + 26 * 19 + 10 * 7)
     b_msz = 4 * N_ENVS * (26 + 3 + 1)
+    # K3 must read A's lower triangle (351 floats) and b, and write x
+    b_k3 = 4 * N_ENVS * (26 * 27 // 2 + 26 + 26)
+    f_k3 = linalg.spd_solve_flops(26) * N_ENVS
+    launches["spd_solve"] = co_launches["spd_solve"]
     kernels = []
-    for name, src, rep, ms, pms, err, (bms, by) in (
+    for name, src, rep, ms, pms, err, (bms, by), lib_ms in (
         ("fused_step", "dexrobot_isaac_tpu_torch/csrc/fused_step.cu",
          "dexrobot_isaac_tpu/envs/fused_step.py:1080", k1_ms, k1_plain_ms, k1["obs"],
-         bound(b_k1, f_k1)),
+         bound(b_k1, f_k1), None),
         ("control_step", "dexrobot_isaac_tpu_torch/csrc/control_step.cu",
          "dexrobot_isaac_tpu/physics/pallas_step.py:1141", k2_ms, k2_plain_ms, k2_abs,
-         bound(b_k2, f_k2)),
+         bound(b_k2, f_k2), None),
         ("min_site_z", "dexrobot_isaac_tpu_torch/csrc/control_step.cu",
          "dexrobot_isaac_tpu/physics/pallas_step.py:986", msz_ms, msz_plain_ms, mz_err,
-         bound(b_msz, f_msz)),
+         bound(b_msz, f_msz), None),
+        ("spd_solve", "dexrobot_isaac_tpu_torch/csrc/spd_solve.cu",
+         "dexrobot_isaac_tpu/ops/linalg.py:113", k3_ms, k3_plain_ms, k3_abs,
+         bound(b_k3, f_k3), k3_lib_ms),
     ):
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": launches[name], "max_abs_err": err, "ms": ms,
-                        "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": None})
-        log(f"[numbers] {name}: {ms:.3f} ms/launch, plain {pms:.3f} ms, bound {bms:.4f} ms "
-            f"({by}), launches {launches[name]}")
-    log(f"[numbers] env-steps/s {sps:,.0f} ({card}); total {time.perf_counter() - t_start:.0f} s")
+                        "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
+        log(f"[numbers] {name}: {ms:.4f} ms/launch, plain {pms:.4f} ms, bound {bms:.5f} ms "
+            f"({by}), library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+            f"launches {launches[name]}")
+    log(f"[numbers] env-steps/s {sps:,.0f}, training env-steps/s {train_sps:,.0f} ({card}); "
+        f"total {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

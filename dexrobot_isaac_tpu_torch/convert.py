@@ -9,7 +9,12 @@ them by attribute name, so both packages compute on the same values:
 - `fused_state`: a JAX `FusedEnvState` -> the port's `FusedEnvState`;
 - `task_reset` / `dr_sample`: JAX reset and DR samples -> the port's, which
   `envs/fused_step.py` `operand_rows` turns into the kernel's operand rows;
-- `hand_model`: the JAX `HandModel` arrays -> the port's `HandModel`.
+- `hand_model`: the JAX `HandModel` arrays -> the port's `HandModel`;
+- `actor_critic_from_flax`: flax `ActorCritic` params -> the port's
+  `ActorCritic` params (`PPOState.params`);
+- `running_mean_std`: a JAX `RunningMeanStd` -> the port's.
+
+Reading the JAX package's `.ckpt` files (flax msgpack) is not supported.
 
 The tensors go to the card unless the caller passes `device="cpu"`.
 """
@@ -26,6 +31,7 @@ from dexrobot_isaac_tpu_torch.envs.tasks.api import TaskReset
 from dexrobot_isaac_tpu_torch.envs.types import EnvState
 from dexrobot_isaac_tpu_torch.models.dexhand021 import HandModel
 from dexrobot_isaac_tpu_torch.physics.types import DRSample, PhysicsState
+from dexrobot_isaac_tpu_torch.rl.running_stats import RunningMeanStd
 from dexrobot_isaac_tpu_torch.utils.device import resolve_device
 
 
@@ -72,3 +78,24 @@ def hand_model(src) -> HandModel:
     return HandModel(**{f.name: (list(getattr(src, f.name)) if f.type in ("List[str]",)
                                  else np.array(getattr(src, f.name)))
                         for f in dataclasses.fields(HandModel)})
+
+
+def actor_critic_from_flax(params_np, device="cuda") -> dict:
+    """flax params of `ActorCritic` (the tree `network.init` returns, or its
+    "params" entry, as numpy) -> {name: tensor} in the port's
+    `ActorCritic.named_parameters()` naming. A Dense kernel (in, out)
+    becomes a torch weight (out, in)."""
+    tree = params_np.get("params", params_np)
+    out = {}
+    for name, leaf in tree.items():
+        if name == "log_std":
+            out["log_std"] = tensor(leaf, device)
+            continue
+        out[f"layers.{name}.weight"] = tensor(np.asarray(leaf["kernel"]).T, device)
+        out[f"layers.{name}.bias"] = tensor(leaf["bias"], device)
+    return out
+
+
+def running_mean_std(src, device="cuda") -> RunningMeanStd:
+    return RunningMeanStd(tensor(src.mean, device), tensor(src.var, device),
+                          tensor(src.count, device))

@@ -199,6 +199,11 @@ TERM_COMPONENTS = (
 
 def _check_supported(env) -> None:
     c = env.comps
+    if c.engine.params.coriolis:
+        # the kernel's lane physics carries no Coriolis bias (the JAX
+        # SimParams.coriolis docstring; the JAX fused step does not check
+        # it and drops the bias on TPU)
+        raise FusedUnsupported("SimParams.coriolis")
     if not isinstance(c.task, BlindGraspingTask):
         raise FusedUnsupported(f"task {c.task.name} has no fused-kernel implementation yet")
     if c.task.pre_action_rule is not None or c.task.custom_action_rule is not None \

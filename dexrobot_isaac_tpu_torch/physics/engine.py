@@ -8,8 +8,15 @@ forward kinematics over the 26-DOF tree, penalty contacts (hand spheres vs
 ground, pruned finger self-collision pairs, spheres vs the free box, box
 corners vs ground), the CRBA mass matrix, the implicit-PD solve (dense
 Cholesky here; the kernel factors the sparse LTL), joint-limit projection and
-box integration. Coriolis terms and the second box are not ported yet: the
-engine raises on `SimParams.coriolis` and `SimParams.has_box2`.
+box integration, and with `SimParams.coriolis` the RNEA velocity-product
+bias. The second box is not ported yet: the engine raises on
+`SimParams.has_box2`.
+
+`make_control_step` is the control step the env runs: the lane-physics
+kernel K2 (`physics/lane_step.py`), or with `SimParams.coriolis`, which K2
+does not carry, this engine's own op sequence with the batched SPD solve K3
+(`ops/linalg.py`) on a CUDA tensor, as the JAX package declines its kernel
+there (`engine.py:1042-1045`).
 
 Build-time model analysis (apparent contact masses, the self-collision pair
 list) is the JAX package's numpy code, copied.
@@ -27,6 +34,7 @@ from dexrobot_isaac_tpu_torch.models.dexhand021 import (
     PRISMATIC,
     build_hand_model,
 )
+from dexrobot_isaac_tpu_torch.ops import linalg
 from dexrobot_isaac_tpu_torch.ops import quat as qm
 from dexrobot_isaac_tpu_torch.physics.types import (
     DRSample,
@@ -305,8 +313,6 @@ class HandPhysics:
         self.model = model or build_hand_model()
         self.params = params or SimParams()
         p = self.params
-        if p.coriolis:
-            raise NotImplementedError("SimParams.coriolis is not ported yet")
         if p.has_box2:
             raise NotImplementedError("SimParams.has_box2 is not ported yet")
         self.device = resolve_device(device)
@@ -412,8 +418,8 @@ class HandPhysics:
         s_lin = torch.where(prism, a, _cross(o, a))
         return torch.cat([s_ang, s_lin], dim=-1)                  # (N, B, 6)
 
-    def mass_matrix(self, kin: KinematicsOut, S: torch.Tensor) -> torch.Tensor:
-        """Composite-rigid-body mass matrix (N, 26, 26), world coordinates."""
+    def _spatial_inertia_o(self, kin: KinematicsOut) -> torch.Tensor:
+        """Per-body spatial inertia (N, B, 6, 6) about the world origin."""
         T = self.t
         R = qm.quat_to_rotmat(kin.body_quat)                       # (N,B,3,3)
         com_w = kin.body_pos + torch.einsum("nbij,bj->nbi", R, T["com"])
@@ -424,17 +430,25 @@ class HandPhysics:
             com_w.shape + (3,))
         mass = T["mass"][:, None, None]
         eye = torch.eye(3, dtype=cx.dtype, device=cx.device).expand(cx.shape)
-        i_o = torch.cat([
+        return torch.cat([
             torch.cat([i_c - mass * (cx @ cx), mass * cx], -1),
             torch.cat([-mass * cx, mass * eye], -1),
-        ], -2)                                                     # (N,B,6,6)
+        ], -2)
+
+    def mass_matrix(self, kin: KinematicsOut, S: torch.Tensor,
+                    i_o: torch.Tensor | None = None) -> torch.Tensor:
+        """Composite-rigid-body mass matrix (N, 26, 26), world coordinates.
+        `i_o`: the per-body spatial inertias, when the caller (the Coriolis
+        bias) built them already."""
+        if i_o is None:
+            i_o = self._spatial_inertia_o(kin)
         ic = list(i_o.unbind(1))
         for i in reversed(range(len(ic))):
             if self.parent[i] >= 0:
                 ic[self.parent[i]] = ic[self.parent[i]] + ic[i]
         f = torch.einsum("nbij,nbj->nbi", torch.stack(ic, 1), S)
         raw = torch.einsum("nbi,nci->nbc", S, f)
-        am = raw * T["anc"]
+        am = raw * self.t["anc"]
         return am + am.transpose(1, 2) - torch.diag_embed(torch.diagonal(raw, dim1=1, dim2=2))
 
     # ------------------------------------------------------------------
@@ -558,7 +572,8 @@ class HandPhysics:
         out = torch.zeros(n, self.model.num_bodies, x.shape[-1], dtype=x.dtype, device=x.device)
         return out.index_add_(1, self.t["sphere_body"], x)
 
-    def _substep(self, st: PhysicsState, targets, spawn, dr: DRSample):
+    def _substep(self, st: PhysicsState, targets, spawn, dr: DRSample, solve):
+        """One substep; `solve(A, rhs)` is the batched SPD solve."""
         p, T = self.params, self.t
         h = self.substep_dt
         kin = self.fk(st.q, st.qd, spawn)
@@ -573,13 +588,25 @@ class HandPhysics:
         body_w = body_w + torch.cat([_cross(com_w, f_g), f_g], -1)
         subtree_w = torch.einsum("bc,nck->nbk", T["anc"], body_w)
         Q = (S * subtree_w).sum(-1)
+        i_o = None
+        if p.coriolis:
+            # RNEA velocity-product bias in world-origin Plücker coordinates
+            # (engine.py:887-912): per-body p_bias = v x* (I_o v) with
+            # v = (omega, v at the origin); C(q, qd) qd = S^T (subtree sums
+            # of p_bias) enters the right-hand side with a minus sign
+            i_o = self._spatial_inertia_o(kin)
+            omega = kin.body_angvel
+            v_o = kin.body_linvel - _cross(omega, kin.body_pos)
+            hv = torch.einsum("nbij,nbj->nbi", i_o, torch.cat([omega, v_o], -1))
+            p_bias = torch.cat([_cross(omega, hv[..., :3]) + _cross(v_o, hv[..., 3:]),
+                                _cross(omega, hv[..., 3:])], -1)
+            Q = Q - (S * torch.einsum("bc,nck->nbk", T["anc"], p_bias)).sum(-1)
         kp = T["kp"] * dr.kp_scale[:, None]
         kd = T["kd"] * dr.kd_scale[:, None]
-        M = self.mass_matrix(kin, S) + torch.diag(T["armature"])
+        M = self.mass_matrix(kin, S, i_o=i_o) + torch.diag(T["armature"])
         A = M + torch.diag_embed(h * kd + h * h * kp)
         rhs = (M @ st.qd[..., None])[..., 0] + h * (kp * (targets - st.q) + Q)
-        L = torch.linalg.cholesky(A)
-        qd_new = torch.cholesky_solve(rhs[..., None], L)[..., 0]
+        qd_new = solve(A.contiguous(), rhs.contiguous())
         q_new = st.q + h * qd_new
         low_hit, high_hit = q_new < T["lower"], q_new > T["upper"]
         q_new = torch.minimum(torch.maximum(q_new, T["lower"]), T["upper"])
@@ -600,21 +627,33 @@ class HandPhysics:
             new = dataclasses.replace(st, q=q_new, qd=qd_new)
         return new, StepInfo(self._segment_sum(force), box_f)
 
-    def plain_control_step(self, n_physics_steps: int):
+    def _op_control_step(self, n_physics_steps: int, solve):
         """fn(state, targets, spawn, dr) -> (state, StepInfo of the last
         substep, KinematicsOut of the final state): `n_physics_steps x
-        substeps` substeps, then the final FK."""
+        substeps` substeps of this engine's ops with `solve`, then the final
+        FK."""
         def fn(state: PhysicsState, targets, spawn, dr: DRSample):
             info = None
             for _ in range(n_physics_steps * self.params.substeps):
-                state, info = self._substep(state, targets, spawn, dr)
+                state, info = self._substep(state, targets, spawn, dr, solve)
             return state, info, self.fk(state.q, state.qd, spawn)
 
         return fn
 
+    def plain_control_step(self, n_physics_steps: int):
+        """The plain control step: this engine's ops with the plain SPD solve
+        (`linalg.spd_solve_plain`). K2's reference, and with
+        `SimParams.coriolis` the reference of the Coriolis step."""
+        return self._op_control_step(n_physics_steps, linalg.spd_solve_plain)
+
     def make_control_step(self, n_physics_steps: int):
-        """The control step the env runs: the lane-physics kernel on a CUDA
-        tensor, its plain version (`plain_control_step`) on a CPU tensor."""
+        """The control step the env runs. Without Coriolis terms: the
+        lane-physics kernel K2 on a CUDA tensor, its plain version on a CPU
+        one. With `SimParams.coriolis`, which K2 does not carry: this
+        engine's ops with `linalg.spd_solve`, the kernel K3 on a CUDA tensor
+        and the plain solve on a CPU one."""
+        if self.params.coriolis:
+            return self._op_control_step(n_physics_steps, linalg.spd_solve)
         from dexrobot_isaac_tpu_torch.physics.lane_step import build_control_step
 
         return build_control_step(self, n_physics_steps)

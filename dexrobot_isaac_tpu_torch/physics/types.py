@@ -82,14 +82,17 @@ class SimParams:
     box_size: float = 0.05
     box_mass: float = 0.1
     box_friction: float = 1.0
-    # second free box and the Coriolis terms exist in the JAX engine; the
-    # port raises on them (later slices)
+    # the second free box exists in the JAX engine; the port raises on it
+    # (a later slice)
     has_box2: bool = False
     box2_size: float = 0.08
     box2_mass: float = 0.5
     box2_friction: float = 1.0
     hand_friction: float = 1.0
     ground_friction: float = 1.0
+    # RNEA velocity-product (Coriolis/centrifugal) terms in the joint-space
+    # dynamics; the lane kernels K1 and K2 do not carry them, so the control
+    # step runs the engine's ops with the SPD-solve kernel K3
     coriolis: bool = False
 
 

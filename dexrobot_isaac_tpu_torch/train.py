@@ -1,0 +1,366 @@
+"""CLI entry point of the torch port: train or evaluate PPO policies.
+
+The port of the repository's `train.py`, over the port's JSON config twins:
+
+    python -m dexrobot_isaac_tpu_torch.train task=BlindGrasping numEnvs=4096
+    python -m dexrobot_isaac_tpu_torch.train task=BlindGrasping numEnvs=4 maxIterations=2 device=cpu
+    python -m dexrobot_isaac_tpu_torch.train test=true checkpoint=latest task=BlindGrasping
+
+`key=value` overrides, config groups and aliases as `train.py`. It runs on
+the CUDA card (the config's `device`, whatever it names, unless it is
+`cpu`; `device=cpu` runs the plain versions on the CPU). Each run gets a
+directory under `$DEXHAND_RUNS_DIR` (default: the working directory) with
+its config, log, TensorBoard events (when `tensorboard` is installed) and
+checkpoints (`nn/*.pt`, rl/checkpoint.py); `checkpoint=latest|<run>|<path>`
+resumes or evaluates.
+
+`train.params.config.fused` = auto (default) | on | off: auto runs the fused
+env-step kernel K1 on the card where the configuration has one (else the
+unfused step) and the unfused step on the CPU; on forces the fused step on
+either device (its plain version on the CPU) and raises where it is
+unsupported; off runs the unfused step. `test=true` always runs the unfused
+step. Video, the viewer, streaming, profiling and multi-device training are
+not ported: the CLI refuses them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from dexrobot_isaac_tpu_torch.envs.fused_step import FusedUnsupported
+from dexrobot_isaac_tpu_torch.factory import make_env
+from dexrobot_isaac_tpu_torch.rl.checkpoint import (
+    HotReloadMonitor,
+    load_checkpoint,
+    load_checkpoint_meta,
+    save_checkpoint,
+)
+from dexrobot_isaac_tpu_torch.rl.observer import DeviceBreakdown, RewardComponentObserver
+from dexrobot_isaac_tpu_torch.rl.ppo import PPOLearner, ppo_config_from
+from dexrobot_isaac_tpu_torch.utils.config import ALIASES, get_by_path, load_config
+from dexrobot_isaac_tpu_torch.utils.device import resolve_device
+from dexrobot_isaac_tpu_torch.utils.experiment import ExperimentManager, resolve_checkpoint
+from dexrobot_isaac_tpu_torch.utils.logging import setup_logging
+
+_UNPORTED = {"env.videoRecord": "video recording", "env.videoStream": "video streaming",
+             "env.viewer": "the viewer", "train.profile": "profiling"}
+
+
+@dataclasses.dataclass
+class CliRun:
+    """What `main` builds before it trains or evaluates."""
+
+    cfg: Dict[str, Any]
+    env: Any
+    fused: Any                 # the fused step (envs/fused_step.py) or None
+    learner: PPOLearner
+    ppo: Any
+    run_dir: str
+    logger: Any
+    test_mode: bool
+    resume_meta: Optional[Dict[str, Any]] = None
+    # one entry per logged train iteration: env-steps/s of the window, the
+    # last iteration's rollout and update seconds, its KL and mean reward
+    stats: List[Dict[str, float]] = dataclasses.field(default_factory=list)
+
+
+def cli_device(cfg) -> torch.device:
+    """`device=cpu` runs on the CPU; anything else on the CUDA card."""
+    name = str(cfg.get("device", "cuda")).lower()
+    return resolve_device("cpu" if name.startswith("cpu") else "cuda")
+
+
+def _fused_mode(raw) -> str:
+    # YAML parses bare off/on as booleans
+    mode = {False: "off", True: "on"}.get(raw, str(raw).lower())
+    return {"false": "off", "0": "off", "true": "on", "1": "on"}.get(mode, mode)
+
+
+def usage_text() -> str:
+    lines = [__doc__.strip(), "", "Aliases:"]
+    lines += [f"  {alias:16} -> {path}" for alias, path in ALIASES.items()]
+    return "\n".join(lines)
+
+
+def build(cfg: Dict[str, Any]) -> CliRun:
+    for key, what in _UNPORTED.items():
+        if get_by_path(cfg, key):
+            raise NotImplementedError(f"{key}: {what} is not ported to the torch CLI yet")
+    device = cli_device(cfg)
+    test_mode = bool(get_by_path(cfg, "train.test", False))
+    mode = "test" if test_mode else "train"
+    task_name = get_by_path(cfg, "task.name", "BaseTask")
+    runs_base = os.environ.get("DEXHAND_RUNS_DIR", ".")
+    exp = ExperimentManager(
+        base_dir=runs_base,
+        max_train_runs=int(get_by_path(cfg, "train.experiment.maxTrainRuns", 10)),
+        max_test_runs=int(get_by_path(cfg, "train.experiment.maxTestRuns", 10)),
+    )
+    run_dir = exp.create_run(task_name, mode,
+                             experiment_name=get_by_path(cfg, "train.logging.experimentName"),
+                             cfg=cfg)
+    log_file = (None if get_by_path(cfg, "train.logging.noLogFile", False)
+                else os.path.join(run_dir, f"{mode}.log"))
+    logger = setup_logging(get_by_path(cfg, "train.logging.logLevel", "info"), log_file)
+    logger.info(f"Run directory: {run_dir}")
+    logger.info(f"Task: {task_name} | mode: {mode} | device: "
+                + (torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"))
+
+    seed = int(get_by_path(cfg, "train.seed", 42))
+    env = make_env(cfg, seed=seed, device=device)
+    logger.info(f"Env: {env.num_envs} envs, obs {env.num_obs}"
+                + (f" (+{env.num_states} critic states)" if env.num_states else "")
+                + f", actions {env.num_actions}, control_dt {env.control_dt:.3f}s")
+    fused = None
+    mode_f = _fused_mode(get_by_path(cfg, "train.params.config.fused", "auto"))
+    if not test_mode and (mode_f == "on" or (mode_f == "auto" and device.type == "cuda")):
+        try:
+            fused = env.make_fused()
+        except FusedUnsupported as e:
+            if mode_f == "on":
+                raise
+            logger.info(f"Fused env-step unavailable ({e}); unfused step")
+    learner = PPOLearner(ppo_config_from(cfg, env), fused.step_fn if fused else env.step_fn,
+                         seed=seed, device=device)
+    if fused is not None:
+        learner.comp_names = fused.comp_names
+        logger.info("Fused env-step kernel enabled")
+    ppo = learner.init_state()
+    resume_meta = None
+    spec = get_by_path(cfg, "train.checkpoint")
+    if spec:
+        path = resolve_checkpoint(str(spec), base_dir=runs_base)
+        logger.info(f"Loading checkpoint: {path}")
+        ppo = load_checkpoint(path, ppo, learner)
+        resume_meta = load_checkpoint_meta(path)
+    return CliRun(cfg, env, fused, learner, ppo, run_dir, logger, test_mode, resume_meta)
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if any(a in ("--help", "-h", "help") for a in argv):
+        print(usage_text())
+        return 0
+    s = build(load_config(argv))
+    return run_test(s) if s.test_mode else run_train(s)
+
+
+def run_train(s: CliRun) -> int:
+    cfg, env, learner, logger = s.cfg, s.env, s.learner, s.logger
+    ppo = s.ppo
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError:
+        writer = None
+    else:
+        writer = SummaryWriter(os.path.join(s.run_dir, "tb"))
+    observer = RewardComponentObserver(
+        writer, int(get_by_path(cfg, "train.logging.rewardLogInterval", 100)))
+    max_iters = int(get_by_path(cfg, "train.maxIterations", 10000))
+    save_freq = int(get_by_path(cfg, "train.params.config.save_frequency", 100))
+    log_interval = max(1, int(get_by_path(cfg, "train.params.config.log_interval", 10)))
+    task_name = get_by_path(cfg, "task.name", "BaseTask")
+    nn_dir = os.path.join(s.run_dir, "nn")
+    # dispatch chunking: `chunk` iterations between host syncs
+    chunk = max(1, int(get_by_path(cfg, "train.params.config.dispatch_chunk", 1)))
+    if chunk > 1 and max_iters % chunk:
+        max_iters = (max_iters // chunk + 1) * chunk
+        logger.info(f"maxIterations rounded up to {max_iters} (multiple of "
+                    f"dispatch_chunk={chunk})")
+    train_step = learner.make_chunked_train_step(chunk) if chunk > 1 else learner.train_iteration
+    env_state, obs = s.fused.reset() if s.fused is not None else env.reset_fn()
+
+    best_reward = -np.inf
+    window_t, window_it = time.time(), 0
+    steps_per_iter = learner.cfg.horizon_length * env.num_envs
+
+    # curriculum controller: promote the reset difficulty when the windowed
+    # success rate clears the threshold (a host-side replacement of the
+    # state's difficulty scalar), as train.py
+    cur_cfg = get_by_path(cfg, "task.curriculum", {}) or {}
+    cur_enabled = bool(cur_cfg.get("enabled", False))
+    difficulty = float(cur_cfg.get("initial_difficulty", 0.0)) if cur_enabled else 1.0
+
+    def with_difficulty(state, d):
+        return dataclasses.replace(state, difficulty=torch.tensor(
+            d, dtype=torch.float32, device=learner.device))
+
+    if cur_enabled and s.resume_meta and "difficulty" in s.resume_meta:
+        difficulty = float(s.resume_meta["difficulty"])
+        env_state = with_difficulty(env_state, difficulty)
+        logger.info(f"Resumed curriculum difficulty: {difficulty:.2f}")
+    cur_inc = float(cur_cfg.get("increment", 0.15))
+    cur_thresh = float(cur_cfg.get("promote_success_rate", 0.3))
+    cur_min_episodes = int(cur_cfg.get("min_episodes", 500))
+    # eval-matched gating on episodes spawned at the current difficulty
+    # (tasks that report spawn_difficulty)
+    cur_strict = bool(cur_cfg.get("promote_strict", False))
+    cur_succ = cur_done = cur_nonstrict_done = 0
+    # promotion cooldown: episodes spawned before a promotion can run
+    # ceil(episodeLength / horizon) more iterations
+    cur_cooldown_iters = (int(get_by_path(cfg, "env.episodeLength", 500))
+                          + learner.cfg.horizon_length - 1) // learner.cfg.horizon_length + 1
+    cur_cooldown_until = 0
+    breakdown = None
+
+    for it_prev in range(0, max_iters, chunk):
+        it = min(it_prev + chunk, max_iters)
+
+        def crossed(interval):
+            return it_prev // interval != it // interval
+
+        ppo, env_state, obs, metrics, roll_extras = train_step(ppo, env_state, obs)
+        s.ppo = ppo
+        if breakdown is None:
+            breakdown = DeviceBreakdown.create(roll_extras, comp_names=learner.comp_names)
+        breakdown.update(roll_extras)
+        if crossed(log_interval) or it == max_iters:
+            m = {k: float(v) for k, v in metrics.items()}
+            if not (np.isfinite(m["reward_mean"]) and np.isfinite(m["kl"])):
+                # outside nn/ so checkpoint=latest never resolves to it
+                save_checkpoint(os.path.join(s.run_dir, "diverged.pt"), ppo,
+                                {"iteration": it, "difficulty": difficulty}, learner)
+                logger.error(f"Non-finite training metrics at iter {it} (reward_mean="
+                             f"{m['reward_mean']}, kl={m['kl']}): aborting. Resume from the "
+                             "last finite checkpoint with a lower "
+                             "train.params.config.lr_ceiling.")
+                return 1
+            now = time.time()
+            sps = (it - window_it) * steps_per_iter / max(now - window_t, 1e-9)
+            window_t, window_it = now, it
+            rollout_s, update_s = learner.iteration_seconds()
+            s.stats.append({"iteration": it, "env_steps_per_s": sps, "rollout_s": rollout_s,
+                            "update_s": update_s, "kl": m["kl"],
+                            "reward_mean": m["reward_mean"]})
+            logger.info(f"iter {it}/{max_iters} reward {m['reward_mean']:+.3f} "
+                        f"kl {m['kl']:.4f} lr {m['lr']:.2e} | {sps:,.0f} env-steps/s | "
+                        f"rollout {rollout_s * 1e3:.1f} ms update {update_s * 1e3:.1f} ms"
+                        + (f" | difficulty {difficulty:.2f}" if cur_enabled else ""))
+            if writer:
+                step = it * steps_per_iter
+                for k, v in m.items():
+                    writer.add_scalar(f"training/{k}", v, step)
+                writer.add_scalar("performance/env_steps_per_s", sps, step)
+                if cur_enabled:
+                    writer.add_scalar("training/difficulty", difficulty, step)
+            summary = breakdown.fetch_and_reset(global_step=it * steps_per_iter)
+            observer.process_device_window(summary)
+
+            if cur_enabled and difficulty < 1.0:
+                ep_count = np.asarray(summary["ep_count"])
+                if it < cur_cooldown_until:
+                    pass  # episodes still spawned at the previous difficulty
+                elif cur_strict:
+                    strict = np.asarray(summary.get("ep_count_strict", [0, 0]))
+                    cur_succ += int(strict[0])
+                    cur_done += int(strict[1])
+                    cur_nonstrict_done += int(ep_count.sum())
+                    if cur_done == 0 and cur_nonstrict_done >= 4 * cur_min_episodes:
+                        # without spawn_difficulty the strict counters stay
+                        # zero and the curriculum would never promote
+                        logger.warning(
+                            "curriculum.promote_strict is set but "
+                            f"{cur_nonstrict_done} episodes completed with zero strict-spawn "
+                            "counters: the task does not report spawn_difficulty "
+                            "(success_strict/done_strict); falling back to non-strict "
+                            "promotion counting")
+                        cur_strict = False
+                        cur_succ = int(ep_count[0])
+                        cur_done = int(ep_count.sum())
+                else:
+                    cur_succ += int(ep_count[0])
+                    cur_done += int(ep_count.sum())
+                if cur_done >= cur_min_episodes:
+                    rate = cur_succ / cur_done
+                    if rate >= cur_thresh:
+                        difficulty = min(1.0, difficulty + cur_inc)
+                        env_state = with_difficulty(env_state, difficulty)
+                        logger.info(f"Curriculum: success rate {rate:.2f} over {cur_done} "
+                                    f"episodes -> difficulty {difficulty:.2f}")
+                        cur_cooldown_until = it + cur_cooldown_iters
+                    cur_succ = cur_done = 0
+
+            if m["reward_mean"] > best_reward and it >= int(
+                    get_by_path(cfg, "train.params.config.save_best_after", 1)):
+                best_reward = m["reward_mean"]
+                save_checkpoint(os.path.join(nn_dir, f"{task_name}_best.pt"), ppo,
+                                {"iteration": it, "reward": best_reward,
+                                 "difficulty": difficulty}, learner)
+        if crossed(save_freq) or it == max_iters:
+            path = os.path.join(nn_dir, f"{task_name}_ep{it}.pt")
+            meta = {"iteration": it, "difficulty": difficulty}
+            save_checkpoint(path, ppo, meta, learner)
+            save_checkpoint(os.path.join(nn_dir, "latest.pt"), ppo, meta, learner)
+            logger.info(f"Saved checkpoint: {path}")
+    if writer:
+        writer.close()
+    logger.info("Training complete")
+    return 0
+
+
+def run_test(s: CliRun) -> int:
+    """Deterministic evaluation for testGamesNum episodes (0 = until
+    interrupted) at difficulty 1.0, with checkpoint hot-reload."""
+    cfg, env, learner, logger = s.cfg, s.env, s.learner, s.logger
+    games_target = int(get_by_path(cfg, "train.testGamesNum", 100))
+    reload_interval = float(get_by_path(cfg, "train.reloadInterval", 30))
+    ppo_box = {"state": s.ppo}
+    monitor = None
+    spec = get_by_path(cfg, "train.checkpoint")
+    if spec:
+        path = resolve_checkpoint(str(spec), base_dir=os.environ.get("DEXHAND_RUNS_DIR", "."))
+
+        def on_reload(p):
+            ppo_box["state"] = load_checkpoint(p, ppo_box["state"])
+            logger.info(f"Reloaded weights from {p}")
+
+        monitor = HotReloadMonitor(path, on_reload, reload_interval)
+        monitor.start()
+    # evaluation runs the full reset distribution, whatever the curriculum's
+    # initial difficulty
+    if env.comps.initial_difficulty != 1.0:
+        env.comps.initial_difficulty = 1.0
+        logger.info("Eval: curriculum difficulty forced to 1.0 (full reset distribution)")
+    env_state, obs = env.reset_fn()
+    games, returns = 0, []
+    ep_ret = np.zeros(env.num_envs)
+    succ = fail = tout = 0
+    try:
+        while games_target == 0 or games < games_target:
+            actions = learner.act_deterministic(ppo_box["state"], obs)
+            env_state, obs, rew, done, extras = env.step_fn(env_state, actions)
+            ep_ret += rew.cpu().numpy()
+            done_h = done.cpu().numpy()
+            if done_h.any():
+                idx = np.nonzero(done_h)[0]
+                returns.extend(ep_ret[idx].tolist())
+                ep_ret[idx] = 0.0
+                games += len(idx)
+                succ += int(extras["success"].cpu().numpy()[idx].sum())
+                fail += int(extras["failure"].cpu().numpy()[idx].sum())
+                tout += int(extras["timeout"].cpu().numpy()[idx].sum())
+                logger.info(f"games {games}/{games_target or 'inf'} avg return "
+                            f"{np.mean(returns):.2f} success {succ} failure {fail} "
+                            f"timeout {tout}")
+    except KeyboardInterrupt:
+        logger.info("Interrupted")
+    finally:
+        if monitor:
+            monitor.stop()
+    if returns:
+        logger.info(f"Evaluation: {len(returns)} episodes, avg return {np.mean(returns):.3f}, "
+                    f"success rate {succ / max(1, len(returns)):.3f}")
+    s.stats.append({"episodes": len(returns), "success": succ, "failure": fail,
+                    "timeout": tout})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

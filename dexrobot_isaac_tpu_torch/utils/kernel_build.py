@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
-SOURCES = ("control_step", "fused_step")
+SOURCES = ("control_step", "fused_step", "spd_solve")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -29,7 +29,8 @@ NVCC_FLAGS = [
 _libs: Dict[str, ctypes.CDLL] = {}
 
 # launches per kernel: each wrapper adds one where it launches its kernel
-LAUNCHES: Dict[str, int] = {"control_step": 0, "min_site_z": 0, "fused_step": 0}
+LAUNCHES: Dict[str, int] = {"control_step": 0, "min_site_z": 0, "fused_step": 0,
+                            "spd_solve": 0}
 
 
 def reset_launches() -> None:

@@ -12,8 +12,14 @@
     convert.py, with the JAX step's reset samples (a light config: 2
     substeps per step, episodeLength 3 so an auto-reset fires).
 (c) The packed fused layout against the JAX package's.
+(d) The unfused step with `sim.coriolis=true` (the port's Coriolis control
+    step, the SPD solve K3's path) against the JAX `env.step_fn`, with the
+    JAX step's reset samples, at the tolerances of (b). The JAX factory does
+    not read `sim.coriolis` (its `build_sim_params` drops the key), so the
+    test hands the JAX env `SimParams(coriolis=True)` itself.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -23,6 +29,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from dexrobot_isaac_tpu import factory as jax_factory
 from dexrobot_isaac_tpu.envs.fused_step import FusedLayout as JaxLayout
 from dexrobot_isaac_tpu.factory import make_env as jax_make_env
 from dexrobot_isaac_tpu.utils.config import load_config as jax_load_config
@@ -38,6 +45,7 @@ GOLDEN_PATH = os.path.join(REPO, "tests", gs.GOLDEN)
 T = torch.as_tensor
 STEP_CONFIG = ["task=BlindGrasping", "numEnvs=8", "env.episodeLength=3", "sim.substeps=1",
                "sim.physics_steps_per_control=2"]
+CORIOLIS_CONFIG = STEP_CONFIG + ["sim.coriolis=true"]
 SEED, STEPS = 5, 3
 
 
@@ -73,9 +81,18 @@ def test_golden_replay_within_budget(golden_replay, key, atol):
 # ---------------------------------------------------------------- (b) step_fn
 @pytest.fixture(scope="module")
 def jax_run():
+    return _jax_rollout(STEP_CONFIG)
+
+
+def _jax_rollout(config, coriolis=False):
     """The JAX env's reset and 3 steps, with each step's reset sample (drawn
     as step_fn draws it, unprojected) and the pre-step states."""
-    env = jax_make_env(jax_load_config(STEP_CONFIG), seed=SEED)
+    with pytest.MonkeyPatch.context() as mp:
+        build = jax_factory.build_sim_params
+        mp.setattr(jax_factory, "build_sim_params",
+                   lambda cfg: dataclasses.replace(build(cfg), coriolis=coriolis))
+        env = jax_make_env(jax_load_config(config), seed=SEED)
+    assert env.comps.engine.params.coriolis == coriolis
     n, task = env.num_envs, env.comps.task
     actions = np.random.default_rng(SEED).uniform(-1, 1, (STEPS, n, env.num_actions)).astype(
         np.float32)
@@ -172,6 +189,24 @@ def test_plain_fused_step_equals_unfused_step(port_env, jax_run):
     assert torch.equal(fs.rows_f, packed.rows_f) and torch.equal(fs.rows_i, packed.rows_i)
     comps = torch.stack([ex["reward_components"][k] for k in fused.comp_names], 1)
     assert torch.equal(fex["reward_components_packed"], comps)
+
+
+# ---------------------------------------------------------------- (d) Coriolis
+@pytest.fixture(scope="module")
+def coriolis_runs():
+    run = _jax_rollout(CORIOLIS_CONFIG, coriolis=True)
+    env = make_env(load_config(CORIOLIS_CONFIG), seed=SEED, device="cpu")
+    assert env.comps.engine.params.coriolis
+    return run, _roll(env, convert.env_state(run["states"][0], "cpu"), run)
+
+
+@pytest.mark.parametrize("t", range(STEPS))
+def test_coriolis_step_fn_matches_jax(coriolis_runs, t):
+    run, port = coriolis_runs
+    obs, rew, done, _ = port[t]
+    np.testing.assert_array_equal(done, run["done"][t])
+    np.testing.assert_allclose(obs, run["obs"][t], rtol=0, atol=2e-4)
+    np.testing.assert_allclose(rew, run["rew"][t], rtol=0, atol=1e-3)
 
 
 def test_fused_step_refuses_unported_task():

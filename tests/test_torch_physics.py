@@ -7,6 +7,12 @@ use_pallas=False)` and the port's `plain_control_step`, at <= 1e-3 relative
 kernel-vs-engine physics tolerance (physics/pallas_step.py:25-26). Also the
 plain `min_site_z` against the JAX lane `build_lane_sim(...).min_site_z`,
 the build-time model analysis, and the K2 wrapper's CPU dispatch.
+
+The Coriolis step (`SimParams.coriolis`): the JAX engine's
+`make_control_step` against the port's (the engine's ops with the SPD solve
+`linalg.spd_solve`, K3 on the card, its plain version here) from the same
+state, at the same 1e-3 relative; the bias is checked to move the state by
+more than that tolerance, so the comparison is not vacuous.
 """
 
 import numpy as np
@@ -19,6 +25,7 @@ import jax.numpy as jnp
 from dexrobot_isaac_tpu.physics import types as jt
 from dexrobot_isaac_tpu.physics.engine import HandPhysics as JaxPhysics
 from dexrobot_isaac_tpu.physics.pallas_step import build_lane_sim
+from dexrobot_isaac_tpu_torch.ops import linalg
 from dexrobot_isaac_tpu_torch.physics import lane_step
 from dexrobot_isaac_tpu_torch.physics import types as tt
 from dexrobot_isaac_tpu_torch.physics.engine import HandPhysics as TorchPhysics
@@ -26,6 +33,30 @@ from dexrobot_isaac_tpu_torch.physics.engine import HandPhysics as TorchPhysics
 N = 8
 PARAMS = dict(dt=0.01, substeps=2, has_box=True)
 REL_TOL = 1e-3
+
+
+def _run_both(je, te, use_port_control_step=False):
+    """One control step of `je` (jnp engine) and `te` (the port's plain
+    step, or its `make_control_step`) from `_inputs()`, as numpy dicts."""
+    state, targets, spawn, dr = _inputs()
+    fn = jax.jit(je.make_control_step(1, use_pallas=False))
+    js, jinfo, jkin = jax.device_get(fn(
+        jt.PhysicsState(**{k: jnp.asarray(v) for k, v in state.items()}),
+        jnp.asarray(targets), jnp.asarray(spawn), jt.DRSample(*map(jnp.asarray, dr))))
+    T = torch.as_tensor
+    step = te.make_control_step(1) if use_port_control_step else te.plain_control_step(1)
+    ts, tinfo, tkin = step(tt.PhysicsState(**{k: T(v) for k, v in state.items()}), T(targets),
+                           T(spawn), tt.DRSample(*map(T, dr)))
+    kin_keys = ("body_pos", "body_quat", "body_linvel", "body_angvel", "dof_axis_w",
+                "dof_origin_w", "site_pos", "site_quat")
+    return dict(
+        jax={**{k: getattr(js, k) for k in state}, "cf": jinfo.body_contact_force,
+             "box_force": jinfo.box_contact_force, **{k: getattr(jkin, k) for k in kin_keys}},
+        torch={**{k: getattr(ts, k).numpy() for k in state},
+               "cf": tinfo.body_contact_force.numpy(),
+               "box_force": tinfo.box_contact_force.numpy(),
+               **{k: getattr(tkin, k).numpy() for k in kin_keys}},
+    )
 
 
 def _inputs():
@@ -55,29 +86,7 @@ def engines():
 
 @pytest.fixture(scope="module")
 def one_step(engines):
-    je, te = engines
-    state, targets, spawn, dr = _inputs()
-    fn = jax.jit(je.make_control_step(1, use_pallas=False))
-    js, jinfo, jkin = jax.device_get(fn(
-        jt.PhysicsState(**{k: jnp.asarray(v) for k, v in state.items()}),
-        jnp.asarray(targets), jnp.asarray(spawn), jt.DRSample(*map(jnp.asarray, dr))))
-    T = torch.as_tensor
-    ts, tinfo, tkin = te.plain_control_step(1)(
-        tt.PhysicsState(**{k: T(v) for k, v in state.items()}), T(targets), T(spawn),
-        tt.DRSample(*map(T, dr)))
-    return dict(
-        jax={**{k: getattr(js, k) for k in state}, "cf": jinfo.body_contact_force,
-             "box_force": jinfo.box_contact_force,
-             **{k: getattr(jkin, k) for k in ("body_pos", "body_quat", "body_linvel",
-                                              "body_angvel", "dof_axis_w", "dof_origin_w",
-                                              "site_pos", "site_quat")}},
-        torch={**{k: getattr(ts, k).numpy() for k in state}, "cf": tinfo.body_contact_force.numpy(),
-               "box_force": tinfo.box_contact_force.numpy(),
-               **{k: getattr(tkin, k).numpy() for k in ("body_pos", "body_quat", "body_linvel",
-                                                        "body_angvel", "dof_axis_w",
-                                                        "dof_origin_w", "site_pos",
-                                                        "site_quat")}},
-    )
+    return _run_both(*engines)
 
 
 QUANTITIES = ["q", "qd", "box_pos", "box_quat", "box_linvel", "box_angvel", "cf", "box_force",
@@ -142,3 +151,46 @@ def test_kernel_refuses_operands_off_the_engine_device(engines):
     _, te = engines
     with pytest.raises(ValueError, match="engine and its model buffer on cpu"):
         lane_step.model_buffer(te, 2, None, torch.device("cuda", 0))
+
+
+# ---------------------------------------------------------------- Coriolis
+@pytest.fixture(scope="module")
+def coriolis_step():
+    return _run_both(JaxPhysics(params=jt.SimParams(**PARAMS, coriolis=True)),
+                     TorchPhysics(params=tt.SimParams(**PARAMS, coriolis=True), device="cpu"),
+                     use_port_control_step=True)
+
+
+@pytest.mark.parametrize("name", QUANTITIES)
+def test_coriolis_control_step_matches_jnp_engine(coriolis_step, name):
+    want, got = np.asarray(coriolis_step["jax"][name]), coriolis_step["torch"][name]
+    scale = max(float(np.abs(want).max()), 1e-6)
+    assert float(np.abs(got - want).max()) / scale <= REL_TOL
+
+
+@pytest.mark.parametrize("name", ["q", "qd"])
+def test_coriolis_bias_exceeds_the_tolerance(coriolis_step, one_step, name):
+    on, off = np.asarray(coriolis_step["jax"][name]), np.asarray(one_step["jax"][name])
+    assert float(np.abs(on - off).max()) / float(np.abs(on).max()) > 2 * REL_TOL
+
+
+def test_coriolis_step_solves_through_spd_solve(monkeypatch):
+    """The Coriolis control step sends every substep's system to
+    `linalg.spd_solve` (K3 on the card), never straight to torch.linalg;
+    the plain step keeps the plain solve."""
+    calls = []
+
+    def counted(A, b):
+        calls.append(A.device)
+        return linalg.spd_solve_plain(A, b)
+
+    monkeypatch.setattr(linalg, "spd_solve", counted)
+    te = TorchPhysics(params=tt.SimParams(**PARAMS, coriolis=True), device="cpu")
+    state, targets, spawn, dr = _inputs()
+    T = torch.as_tensor
+    args = (tt.PhysicsState(**{k: T(v) for k, v in state.items()}), T(targets), T(spawn),
+            tt.DRSample(*map(T, dr)))
+    te.make_control_step(2)(*args)
+    assert len(calls) == 2 * PARAMS["substeps"]
+    te.plain_control_step(2)(*args)
+    assert len(calls) == 2 * PARAMS["substeps"]

@@ -1,8 +1,11 @@
 """Rules of the torch port (`dexrobot_isaac_tpu_torch`), checked on the CPU.
 
-- importing every module of the port loads neither jax nor the JAX package;
-- `make_env`, `HandPhysics` and the `convert` helpers run on CUDA unless
-  asked for the CPU, and raise without CUDA;
+- importing every module of the port loads neither jax (nor flax, optax)
+  nor the JAX package;
+- `make_env`, `HandPhysics` (also with Coriolis terms), the `convert`
+  helpers and the CLI run on CUDA unless asked for the CPU, and raise
+  without CUDA;
+- the fused step refuses the Coriolis configuration;
 - the port's samplers stay inside the configured ranges (a distribution
   check: torch and jax.random cannot give the same bits);
 - the golden-replay operand fixture (`dexrobot_isaac_tpu_torch/data/
@@ -81,7 +84,7 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'dexrobot_isaac_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'dexrobot_isaac_tpu'))\n"
         "assert not bad, bad\n"
         "print(len([k for k in sys.modules if k.startswith('dexrobot_isaac_tpu_torch')]))\n"
     )
@@ -115,6 +118,32 @@ def test_engine_and_convert_require_cuda_unless_cpu(monkeypatch):
         convert.tensor(np.zeros(3, np.float32))
     assert HandPhysics(device="cpu").device.type == "cpu"
     assert convert.tensor(np.zeros(3, np.float32), "cpu").device.type == "cpu"
+
+
+def test_coriolis_engine_and_cli_require_cuda_unless_cpu(monkeypatch, tmp_path):
+    from dexrobot_isaac_tpu_torch import train as cli
+    from dexrobot_isaac_tpu_torch.physics.engine import HandPhysics
+    from dexrobot_isaac_tpu_torch.physics.types import SimParams
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("DEXHAND_RUNS_DIR", str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        HandPhysics(params=SimParams(coriolis=True))
+    assert HandPhysics(params=SimParams(coriolis=True), device="cpu").params.coriolis
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["task=BlindGrasping", "numEnvs=2", "maxIterations=1"])
+    assert not os.path.exists(os.path.join(str(tmp_path), "runs_all"))  # refused first
+
+
+def test_fused_step_refuses_coriolis():
+    from dexrobot_isaac_tpu_torch.envs.fused_step import FusedUnsupported
+    from dexrobot_isaac_tpu_torch.factory import make_env
+    from dexrobot_isaac_tpu_torch.utils.config import load_config
+
+    env = make_env(load_config(["task=BlindGrasping", "numEnvs=2", "sim.coriolis=true"]),
+                   device="cpu")
+    with pytest.raises(FusedUnsupported, match="coriolis"):
+        env.make_fused()
 
 
 def test_samplers_stay_in_configured_ranges():
