@@ -8,7 +8,9 @@ failing the run when it fails:
 
 1. build   compile the kernels of csrc/ with nvcc for sm_90a (one nvcc per
            source, started together); print the build seconds and the
-           ptxas register/spill report, and the card's name and power limit.
+           ptxas register/spill report, each kernel's shared bytes per block
+           and resident blocks (envs) per SM, and the card's name and power
+           limit.
 2. golden  replay tests/golden/fused_blind_grasping.npz (recorded from the
            TPU kernel) through the CUDA fused kernel K1 with the JAX-sampled
            operands of dexrobot_isaac_tpu_torch/data/golden_operands.npz;
@@ -17,7 +19,8 @@ failing the run when it fails:
            contact-rich state (plain steps of random actions): one control
            step of the lane-physics kernel against the plain engine, and
            min_site_z against the plain FK.
-4. K1      one fused step at 4096 envs against the plain fused step.
+4. K1      one fused step at 4096 envs against the plain fused step, and a
+           second launch on the same inputs, bitwise equal to the first.
 5. K3      the SPD solve kernel on the 4096 systems (A, rhs) of one Coriolis
            substep from phase 3's contact-rich state, against its plain
            version (relative 1e-5); both also against a float64 solve.
@@ -37,7 +40,8 @@ failing the run when it fails:
            Metrics (KL, mean reward) and params finite; training env-steps/s
            with each iteration's rollout and update time.
 9. numbers env-steps/s of the 600-step rollout and each kernel's ms per
-           launch (CUDA events, after warm-up) beside its plain version's ms,
+           launch (CUDA events, after warm-up; K1 also at 8192 envs, the
+           README recipe's width) beside its plain version's ms,
            its bound on the card (bytes or f32 operations counted for these
            inputs) and, where one PyTorch call computes the same function,
            that call's ms; the device's busy share over 20 fused steps under
@@ -103,6 +107,23 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-6))
 
 
+def occupancy(kb, lane_step) -> dict:
+    """{kernel: (shared bytes per block, resident blocks per SM, envs per
+    block)} from the libraries' occupancy exports."""
+    import ctypes
+
+    v = [ctypes.c_int() for _ in range(6)]
+    cs, fs = kb.load("control_step"), kb.load("fused_step")
+    check(cs.control_step_occupancy(*map(ctypes.byref, v[:4])) == 0,
+          "control_step occupancy query failed")
+    check(fs.fused_step_occupancy(*map(ctypes.byref, v[4:])) == 0,
+          "fused_step occupancy query failed")
+    envs = lane_step.shared_layout(cs)[2]
+    return {"fused_step": (v[4].value, v[5].value, envs),
+            "control_step": (v[0].value, v[1].value, envs),
+            "min_site_z": (v[2].value, v[3].value, envs)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -134,6 +155,11 @@ def main() -> int:
             for line in f:
                 if any(s in line for s in ("registers", "spill", "stack frame")):
                     log(f"[build] {name}: {line.strip()}")
+    occ = occupancy(kb, lane_step)
+    log("[build] occupancy (a half-warp per env): " + "; ".join(
+        f"{k} {smem} B shared per block of {envs} envs, {blocks} blocks = {blocks * envs} "
+        f"envs resident per SM" for k, (smem, blocks, envs) in occ.items()))
+    check(all(b >= 1 for _, b, _ in occ.values()), f"a kernel cannot be resident: {occ}")
 
     # ---------------------------------------------------------------- 2 golden
     golden = dict(np.load(GOLDEN))
@@ -216,7 +242,13 @@ def main() -> int:
     rf_p, ri_p = fs_k1.rows_f.clone(), fs_k1.rows_i.clone()
     ko = fused.kernel(rf_k, ri_k, act_T, rst, drn, spw)
     po = fused.kernel_plain(rf_p, ri_p, act_T, rst, drn, spw)
+    # a second launch on the same inputs gives the same bits
+    rf_k2, ri_k2 = fs_k1.rows_f.clone(), fs_k1.rows_i.clone()
+    ko2 = fused.kernel(rf_k2, ri_k2, act_T, rst, drn, spw)
     torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, b) for a, b in zip((rf_k, ri_k, *ko), (rf_k2, ri_k2, *ko2)))
+    log(f"[K1] two launches on the same inputs bitwise equal: {same_bits}")
+    check(same_bits, "K1 gave different bits on the same inputs")
     mism = (ko[3] != po[3]).any(0)
     ok = ~mism
     k1 = {"obs": float((ko[1][:, ok] - po[1][:, ok]).abs().max()),
@@ -379,6 +411,19 @@ def main() -> int:
         return fn(rf, ri, act_T, rst, drn, spw)
 
     k1_ms = cuda_ms(lambda: k1_on_phase4_inputs(fused.kernel), 20)
+    # K1 at the README recipe's width (numEnvs=8192): the phase-4 columns twice
+    w2 = lambda x: torch.cat([x, x], 1).contiguous()
+    rf8, ri8, rf8_0, ri8_0 = w2(fs_k1.rows_f), w2(fs_k1.rows_i), w2(fs_k1.rows_f), w2(fs_k1.rows_i)
+    ins8 = [w2(x) for x in (act_T, rst, drn, spw)]
+
+    def k1_8192():
+        rf8.copy_(rf8_0)
+        ri8.copy_(ri8_0)
+        return fused.kernel(rf8, ri8, *ins8)
+
+    k1_8192_ms = cuda_ms(k1_8192, 10)
+    log(f"[numbers] K1 at {N_ENVS} envs {k1_ms:.4f} ms/launch, at {2 * N_ENVS} envs (the "
+        f"README recipe's numEnvs) {k1_8192_ms:.4f} ms/launch ({card})")
     k1_plain_ms = cuda_ms(lambda: k1_on_phase4_inputs(fused.kernel_plain), 1, 1)
     T = lambda x: x.t().contiguous()
     rows = (T(ph.q), T(ph.qd), T(tgt), T(spawn), T(box(ph)), dr.rows().contiguous())

@@ -2,16 +2,20 @@
 //
 // Replaces the TPU kernel of dexrobot_isaac_tpu/envs/fused_step.py
 // (build_fused_step -> kernel_body, pallas_call at :1080 in
-// call_kernel_pallas). One thread per env runs, on its own column of the
-// packed state: the action pipeline (position / position_delta, velocity and
-// position clamps, 18 -> 26 coupling), the lane physics of lane_physics.cuh
-// (physics_steps_per_control x substeps substeps, then the final FK and the
-// fingertip/pad sites), the default observations, BlindGrasping's task step,
-// the hitting-ground check, termination, the common + task rewards and their
-// weighted sum, the obs/reward/mask/component rows, the spawn projection of
-// the reset rows (lp_min_site_z, the factory's reset-path function) and the
-// done-masked reset merge. rows_f / rows_i are read and written IN PLACE (the
-// JAX kernel aliases them): each thread loads its whole column first.
+// call_kernel_pallas). A half-warp per env (the design of lane_physics.cuh),
+// LP_ENVS envs per block. Per env, on its staged column: the action pipeline
+// (position / position_delta, velocity and position clamps, 18 -> 26
+// coupling) on lane 0; the lane physics (physics_steps_per_control x
+// substeps substeps, then the final FK) on the whole warp; the spawn
+// projection of the reset rows (lp_min_site_z, the min_site_z kernel's code,
+// which the factory's reset closure calls) on the whole warp, for every env
+// since whether it resets is known only after the task step; then on lane 0
+// the fingertip/pad sites, the default observations, BlindGrasping's task
+// step, the hitting-ground check, termination, the common + task rewards and
+// their weighted sum, the obs/reward/mask/component rows and the
+// done-masked reset merge. rows_f / rows_i are read and written IN PLACE
+// (the JAX kernel aliases them): a block stages all of its envs' columns
+// into shared memory before any is overwritten.
 //
 // The static plan (obs key order, reward weights, component order, active
 // criteria and flag rows, row offsets, action limits, task constants) is
@@ -23,16 +27,18 @@
 // components (39) = 469 words: ~2.8 KB/env, ~11.5 MB at 4096 envs, ~3.4 us
 // at 3.35 TB/s. The 16 substeps of lane physics carry ~5e5 f32 FLOPs/env
 // (~2e9 at 4096 envs, ~30 us at 67 TFLOP/s), so the FLOPs bound it. The
-// simple design (one thread per env, 128 warps at 4096 envs, per-body
-// arrays in local memory, blocks of 32 threads to spread warps over the SMs)
-// leaves the occupancy and register/spill work for later PRs.
+// half-warp design is bound by the physics' serial phases, hidden by the
+// envs resident per SM; the staged column (~1 KB) makes K1's slot of shared
+// memory larger than K2's, and lane 0's part (the two envs of a warp run
+// theirs side by side) works on shared memory, not the thread's stack. Rows are staged in and out with
+// consecutive threads on consecutive envs, so global accesses stay
+// coalesced in the rows x N layout.
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
 
 #include "lane_physics.cuh"
 
-#define FS_THREADS 32
 
 #define FUSED_CONFIG_FIELDS(S, A)                                                \
   S(int, n_act) S(int, position_mode) S(int, controls_base) S(int, controls_fingers) \
@@ -129,6 +135,18 @@ struct FsObs {
   float thumb, other, grasp, grasp_dur, stage, tis, progress;
 };
 
+// lane 0's working set after the physics, in the env's LpEnv union (after
+// the output rows): shared memory, not the thread's stack, since the lane
+// indexes it by runtime values
+struct FsWork {
+  FsObs o;
+  float r[RT_COUNT];
+  bool fail[FC_COUNT];
+  bool succ[SC_COUNT];
+  int sflag_new[8], fflag_new[8], contacts[8];
+};
+#define FS_WORK_FLOATS ((int)((sizeof(FsWork) + sizeof(float) - 1) / sizeof(float)))
+
 LP_DEV float fs_norm3(const float* a, const float* b) {
   float x = a[0] - b[0], y = a[1] - b[1], z = a[2] - b[2];
   return sqrtf(x * x + y * y + z * z);
@@ -144,9 +162,8 @@ LP_DEV void fs_pose_hand(const FsObs& o, const float* p, const float* qt, float*
 }
 
 // Write one observation key's values as rows [row, row + width) of obs.
-LP_DEV int fs_put_obs(int key, const FsObs& o, const FusedConfig* c, float* obs, int row,
-                      int n, int i) {
-#define PUT(v) obs[(size_t)(row++) * n + i] = (v)
+LP_DEV int fs_put_obs(int key, const FsObs& o, const FusedConfig* c, float* obs, int row) {
+#define PUT(v) obs[row++] = (v)
   float tmp[7];
   switch (key) {
     case OK_BASE_DOF_POS: for (int j = 0; j < 6; ++j) PUT(o.q[j]); break;
@@ -230,47 +247,16 @@ LP_DEV int fs_put_obs(int key, const FsObs& o, const FusedConfig* c, float* obs,
   return row;
 }
 
-LP_DEV void fs_env_step(const LaneModel* m, const FusedConfig* c, int i, int n,
-                        float* rows_f, int* rows_i, const float* act, const float* rst,
-                        const float* drn, const float* spw, float* rows_c, float* obs,
-                        float* rew, int* msk, float* cmp) {
-  const int nc = c->nc;
-  const float dt = c->control_dt;
-#define FR(r) rows_f[(size_t)(r) * n + i]
-#define IR(r) rows_i[(size_t)(r) * n + i]
-  FsObs o;
-  // ---- load the whole column first (rows_f / rows_i are written in place)
-  float q0[LP_MAXB], qd[LP_MAXB], spawn[3], drv[4], drv_old[4];
-  for (int j = 0; j < c->n_act; ++j) o.acts[j] = act[(size_t)j * n + i];
-  for (int j = 0; j < 18; ++j) o.t[j] = FR(c->f_active_prev_targets + j);
-  for (int j = 0; j < m->nb; ++j) { q0[j] = FR(c->f_q + j); qd[j] = FR(c->f_qd + j); }
-  for (int j = 0; j < 3; ++j) { o.box[j] = FR(c->f_box_pos + j); o.box[7 + j] = FR(c->f_box_linvel + j);
-                                o.box[10 + j] = FR(c->f_box_angvel + j); spawn[j] = spw[(size_t)j * n + i]; }
-  for (int j = 0; j < 4; ++j) { o.box[3 + j] = FR(c->f_box_quat + j); drv[j] = FR(c->f_dr[j]); drv_old[j] = drv[j]; }
-  float prev_cb[8], prev_fvel[20], prev_hvel[3], prev_havel[3], init_box[3];
-  int dur_old[8], prev_contacts[8], sflag_old[8], fflag_old[8];
-  for (int b = 0; b < nc; ++b) {
-    prev_cb[b] = FR(c->f_prev_contact_binary + b);
-    dur_old[b] = IR(c->i_contact_duration_steps + b);
-    prev_contacts[b] = IR(c->i_prev_contacts + b);
-  }
-  for (int j = 0; j < 20; ++j) prev_fvel[j] = FR(c->f_prev_finger_dof_vel + j);
-  for (int j = 0; j < 3; ++j) {
-    prev_hvel[j] = FR(c->f_prev_hand_vel + j);
-    prev_havel[j] = FR(c->f_prev_hand_ang_vel + j);
-    init_box[j] = FR(c->f_initial_box_pos + j);
-  }
-  o.epi_old = IR(c->i_episode_step_count);
-  for (int j = 0; j < c->n_sflags; ++j) sflag_old[j] = IR(c->sflag_row[j]);
-  for (int j = 0; j < c->n_fflags; ++j) fflag_old[j] = IR(c->fflag_row[j]);
-  const int stage_old = IR(c->i_current_stage);
-  const int sds_old = IR(c->i_success_duration_steps);
-  const float tis_old = FR(c->f_time_in_stage);
-  const float scd_old = FR(c->f_stage_contact_duration);
+// Action pipeline (envs/action.py process_actions): the active targets t
+// (18) and the full 26-DOF targets from the actions and the previous active
+// targets.
+LP_DEV void fs_actions(const LaneModel* m, const FusedConfig* c, const float* rows_f,
+                       const float* act, float* t, float* full) {
   float prev_t[18];
-  for (int j = 0; j < 18; ++j) prev_t[j] = o.t[j];
-
-  // ---- action pipeline (envs/action.py process_actions)
+  for (int j = 0; j < 18; ++j) {
+    prev_t[j] = rows_f[c->f_active_prev_targets + j];
+    t[j] = prev_t[j];
+  }
   int ofs = 0;
   for (int part = 0; part < 2; ++part) {
     bool on = part == 0 ? c->controls_base : c->controls_fingers;
@@ -278,42 +264,76 @@ LP_DEV void fs_env_step(const LaneModel* m, const FusedConfig* c, int i, int n,
     int base = part == 0 ? 0 : 6, cnt = part == 0 ? 6 : 12;
     for (int j = 0; j < cnt; ++j) {
       int d = base + j;
-      float a = o.acts[ofs + j];
-      o.t[d] = c->position_mode ? (a + 1.0f) * 0.5f * (c->hi[d] - c->lo[d]) + c->lo[d]
-                                : prev_t[d] + a * c->md[d];
+      float a = act[ofs + j];
+      t[d] = c->position_mode ? (a + 1.0f) * 0.5f * (c->hi[d] - c->lo[d]) + c->lo[d]
+                              : prev_t[d] + a * c->md[d];
     }
     ofs += cnt;
   }
   if (!c->position_mode)
-    for (int d = 0; d < 18; ++d) o.t[d] = fminf(fmaxf(o.t[d], c->lo[d]), c->hi[d]);
+    for (int d = 0; d < 18; ++d) t[d] = fminf(fmaxf(t[d], c->lo[d]), c->hi[d]);
   for (int f = 0; f < c->n_filters; ++f) {
     for (int d = 0; d < 18; ++d) {
       if (c->filters[f] == 1)
-        o.t[d] = prev_t[d] + fminf(fmaxf(o.t[d] - prev_t[d], -c->md[d]), c->md[d]);
+        t[d] = prev_t[d] + fminf(fmaxf(t[d] - prev_t[d], -c->md[d]), c->md[d]);
       else
-        o.t[d] = fminf(fmaxf(o.t[d], c->lo[d]), c->hi[d]);
+        t[d] = fminf(fmaxf(t[d], c->lo[d]), c->hi[d]);
     }
   }
   for (int d = 0; d < m->nb; ++d)
-    o.full[d] = c->cscale[d] != 0.f ? o.t[c->csrc[d]] * c->cscale[d] : 0.f;
+    full[d] = c->cscale[d] != 0.f ? t[c->csrc[d]] * c->cscale[d] : 0.f;
+}
 
-  // ---- physics + final FK
-  float cf[LP_MAXB * 3], bf[3] = {0.f, 0.f, 0.f};
-  for (int j = 0; j < m->nb * 3; ++j) cf[j] = 0.f;
-  for (int j = 0; j < m->nb; ++j) o.q[j] = q0[j];
-  LpScratch s;
-  for (int it = 0; it < m->total_substeps; ++it)
-    lp_substep(m, o.q, qd, o.box, o.full, spawn, drv, cf, bf, &s);
-  LpFk* k = &s.fk;
-  lp_fk(m, o.q, qd, spawn, k);
+// Everything after the physics, on one lane: the default observations,
+// BlindGrasping's task step, termination, rewards, the obs/reward/mask/
+// component rows, and the done-masked reset merge into rows_f / rows_i (in
+// place: the env's staged column). s holds the state after the physics and
+// its final FK; t the active targets; mz the reset pose's lowest tip.
+LP_DEV void fs_post(const LaneModel* m, const FusedConfig* c, const LpEnv* s, const float* t,
+                    float mz, float* rows_f, int* rows_i, const float* act, float* rst,
+                    const float* drn, float* rows_c, float* obs, float* rew, int* msk,
+                    float* cmp, FsWork* wk) {
+  const int nc = c->nc;
+  const float dt = c->control_dt;
+#define FR(r) rows_f[(r)]
+#define IR(r) rows_i[(r)]
+  FsObs& o = wk->o;
+  const float* q0 = rows_f + c->f_q;  // the staged column: read here before the merge
+  float drv_old[4];
+  const float* qd = s->qd;
+  const float* cf = s->cf;
+  const float* bf = s->bf;
+  for (int j = 0; j < c->n_act; ++j) o.acts[j] = act[j];
+  for (int j = 0; j < 18; ++j) o.t[j] = t[j];
+  for (int j = 0; j < m->nb; ++j) { o.q[j] = s->q[j]; o.full[j] = s->tgt[j]; }
+  for (int j = 0; j < 13; ++j) o.box[j] = s->box[j];
+  for (int j = 0; j < 4; ++j) drv_old[j] = FR(c->f_dr[j]);
+  const float* prev_cb = rows_f + c->f_prev_contact_binary;
+  const float* prev_fvel = rows_f + c->f_prev_finger_dof_vel;
+  const int* dur_old = rows_i + c->i_contact_duration_steps;
+  const int* prev_contacts = rows_i + c->i_prev_contacts;
+  float prev_hvel[3], prev_havel[3], init_box[3];
+  for (int j = 0; j < 3; ++j) {
+    prev_hvel[j] = FR(c->f_prev_hand_vel + j);
+    prev_havel[j] = FR(c->f_prev_hand_ang_vel + j);
+    init_box[j] = FR(c->f_initial_box_pos + j);
+  }
+  o.epi_old = IR(c->i_episode_step_count);
+  const int stage_old = IR(c->i_current_stage);
+  const int sds_old = IR(c->i_success_duration_steps);
+  const float tis_old = FR(c->f_time_in_stage);
+  const float scd_old = FR(c->f_stage_contact_duration);
+
+  // ---- the final FK: hand and fingertip/pad sites
   const int hb = c->hand_b;
-  for (int j = 0; j < 3; ++j) o.hand_pos[j] = k->pos[hb][j];
-  for (int j = 0; j < 4; ++j) o.hand_quat[j] = k->quat[hb][j];
+  const float* hk = s->kin[hb];
+  for (int j = 0; j < 3; ++j) o.hand_pos[j] = hk[j];
+  for (int j = 0; j < 4; ++j) o.hand_quat[j] = hk[3 + j];
   float hand_lin[3], hand_ang[3];
-  for (int j = 0; j < 3; ++j) { hand_lin[j] = k->lin[hb][j]; hand_ang[j] = k->ang[hb][j]; }
+  for (int j = 0; j < 3; ++j) { hand_lin[j] = hk[7 + j]; hand_ang[j] = hk[10 + j]; }
   for (int f = 0; f < 5; ++f) {
-    lp_site(m, k, c->tip_site[f], o.tip_pos[f], o.tip_quat[f]);
-    lp_site(m, k, c->pad_site[f], o.pad_pos[f], o.pad_quat[f]);
+    lp_site(m, s->kin, c->tip_site[f], o.tip_pos[f], o.tip_quat[f]);
+    lp_site(m, s->kin, c->pad_site[f], o.pad_pos[f], o.pad_quat[f]);
   }
 
   // ---- default observations (prev_dof_pos == pre-physics q)
@@ -378,7 +398,8 @@ LP_DEV void fs_env_step(const LaneModel* m, const FusedConfig* c, int i, int n,
   float velmag = fs_norm3(bvel, zero3);
   bool pregrasp_ok = hdiff3_ok && (centroid_dist <= c->bg_tol_c) &&
                      (drift <= c->bg_tol_drift) && (velmag <= c->bg_tol_vel);
-  bool fail[FC_COUNT], succ[SC_COUNT];
+  bool* fail = wk->fail;
+  bool* succ = wk->succ;
   fail[FC_BOX_TOO_FAR] = o.h2o > c->bg_max_box_dist;
   fail[FC_S1_PREGRASP_FAILED] = s1c && !pregrasp_ok;
   fail[FC_S2_CONTACT_FAILED] = s2c && !grasp;
@@ -392,15 +413,16 @@ LP_DEV void fs_env_step(const LaneModel* m, const FusedConfig* c, int i, int n,
   // ---- termination (termination.py evaluate_termination)
   const int new_count = o.epi_old + 1;
   bool ep_succ = false, ep_fail = false;
-  int sflag_new[8], fflag_new[8];
+  int* sflag_new = wk->sflag_new;
+  int* fflag_new = wk->fflag_new;
   for (int j = 0; j < c->n_sflags; ++j) {
     bool cr = succ[c->sflag_crit[j]];
-    sflag_new[j] = ((!ep_succ && cr) || sflag_old[j] != 0) ? 1 : 0;
+    sflag_new[j] = ((!ep_succ && cr) || IR(c->sflag_row[j]) != 0) ? 1 : 0;
     ep_succ = ep_succ || cr;
   }
   for (int j = 0; j < c->n_fflags; ++j) {
     bool cr = fail[c->fflag_crit[j]];
-    fflag_new[j] = ((!ep_fail && cr) || fflag_old[j] != 0) ? 1 : 0;
+    fflag_new[j] = ((!ep_fail && cr) || IR(c->fflag_row[j]) != 0) ? 1 : 0;
     ep_fail = ep_fail || cr;
   }
   bool timeout = new_count >= c->max_episode_length - 1;
@@ -413,11 +435,14 @@ LP_DEV void fs_env_step(const LaneModel* m, const FusedConfig* c, int i, int n,
                       (tout_t ? 1.f : 0.f) * c->timeout_penalty;
 
   // ---- rewards: common terms, task terms, weighted sum in sorted-name order
-  float r[RT_COUNT];
-  float fvel[20], dv[20];
-  for (int j = 0; j < 20; ++j) { fvel[j] = o.dvel[6 + j]; dv[j] = fvel[j] - prev_fvel[j]; }
+  float* r = wk->r;
+  const float* fvel = o.dvel + 6;
   float nf = 0.f, ndf = 0.f;
-  for (int j = 0; j < 20; ++j) { nf += fvel[j] * fvel[j]; ndf += dv[j] * dv[j]; }
+  for (int j = 0; j < 20; ++j) {
+    float dv = fvel[j] - prev_fvel[j];
+    nf += fvel[j] * fvel[j];
+    ndf += dv * dv;
+  }
   r[RT_ALIVE] = 1.f;
   r[RT_HEIGHT_SAFETY] = fs_clip01(1.0f - expf(-(min_tip - 0.02f) * 20.0f));
   r[RT_FINGER_VELOCITY] = expf(-0.1f * sqrtf(nf));
@@ -432,7 +457,7 @@ LP_DEV void fs_env_step(const LaneModel* m, const FusedConfig* c, int i, int n,
   r[RT_FINGER_ACCELERATION] = expf(-2.0f * sqrtf(ndf));
   r[RT_HAND_ACCELERATION] = expf(-0.5f * fs_norm3(hand_lin, prev_hvel));
   r[RT_HAND_ANGULAR_ACCELERATION] = expf(-0.5f * fs_norm3(hand_ang, prev_havel));
-  int contacts[8];
+  int* contacts = wk->contacts;
   float changes = 0.f;
   for (int b = 0; b < nc; ++b) {
     contacts[b] = o.mags[b] > 0.1f ? 1 : 0;
@@ -476,12 +501,12 @@ LP_DEV void fs_env_step(const LaneModel* m, const FusedConfig* c, int i, int n,
 
   // ---- output rows (terminal obs: computed before the merge)
   int row = 0;
-  for (int j = 0; j < c->n_obs_keys; ++j) row = fs_put_obs(c->obs_keys[j], o, c, obs, row, n, i);
-  rew[i] = total + term_reward;
-  msk[i] = done;
-  msk[(size_t)n + i] = succ_t;
-  msk[(size_t)2 * n + i] = fail_t;
-  msk[(size_t)3 * n + i] = tout_t;
+  for (int j = 0; j < c->n_obs_keys; ++j) row = fs_put_obs(c->obs_keys[j], o, c, obs, row);
+  rew[0] = total + term_reward;
+  msk[0] = done;
+  msk[1] = succ_t;
+  msk[2] = fail_t;
+  msk[3] = tout_t;
   for (int j = 0; j < c->n_comp; ++j) {
     int ti = c->comp_idx[j];
     float v = 0.f;
@@ -498,27 +523,25 @@ LP_DEV void fs_env_step(const LaneModel* m, const FusedConfig* c, int i, int n,
       case CK_TERM_TIMEOUT: v = tout_t ? 1.f : 0.f; break;
       case CK_TERM_TIMEOUT_W: v = -(tout_t ? 1.f : 0.f) * c->timeout_penalty; break;
     }
-    cmp[(size_t)j * n + i] = v;
+    cmp[j] = v;
   }
 
-  // ---- reset rows, spawn-projected (only the done envs read them)
-  float rdof[LP_MAXB], rbpos[3], rbquat[4];
-  for (int j = 0; j < m->nb; ++j) rdof[j] = rst[(size_t)j * n + i];
-  for (int j = 0; j < 3; ++j) rbpos[j] = rst[(size_t)(m->nb + j) * n + i];
-  for (int j = 0; j < 4; ++j) rbquat[j] = rst[(size_t)(m->nb + 3 + j) * n + i];
-  if (done && c->has_proj) {
-    float mz = lp_min_site_z(m, rdof, c->proj_spawn, c->proj_site_mask, k);
-    rdof[2] = rdof[2] + fmaxf(0.f, c->proj_clear - mz);
-  }
+  // ---- reset rows, spawn-projected (only the done envs read them); mz is
+  // the lowest tip of the reset pose, computed for every env beforehand
+  float* rdof = rst;  // the staged reset rows, projected in place
+  float rbpos[3], rbquat[4];
+  for (int j = 0; j < 3; ++j) rbpos[j] = rst[m->nb + j];
+  for (int j = 0; j < 4; ++j) rbquat[j] = rst[m->nb + 3 + j];
+  if (done && c->has_proj) rdof[2] = rdof[2] + fmaxf(0.f, c->proj_clear - mz);
 
   // ---- done-masked reset merge into the carried rows (in place)
   for (int j = 0; j < m->nb; ++j) {
     FR(c->f_q + j) = done ? rdof[j] : o.q[j];
     FR(c->f_qd + j) = done ? 0.f : qd[j];
-    rows_c[(size_t)(c->c_full_dof_targets + j) * n + i] = done ? rdof[j] : o.full[j];
+    rows_c[c->c_full_dof_targets + j] = done ? rdof[j] : o.full[j];
   }
   for (int j = 0; j < m->nb * 3; ++j)
-    rows_c[(size_t)(c->c_body_contact_force + j) * n + i] = done ? 0.f : cf[j];
+    rows_c[c->c_body_contact_force + j] = done ? 0.f : cf[j];
   for (int j = 0; j < 3; ++j) {
     FR(c->f_box_pos + j) = done ? rbpos[j] : o.box[j];
     FR(c->f_box_linvel + j) = done ? 0.f : o.box[7 + j];
@@ -529,7 +552,7 @@ LP_DEV void fs_env_step(const LaneModel* m, const FusedConfig* c, int i, int n,
   }
   for (int j = 0; j < 4; ++j) {
     FR(c->f_box_quat + j) = done ? rbquat[j] : o.box[3 + j];
-    FR(c->f_dr[j]) = done ? drn[(size_t)j * n + i] : drv_old[j];
+    FR(c->f_dr[j]) = done ? drn[j] : drv_old[j];
   }
   for (int j = 0; j < 18; ++j) FR(c->f_active_prev_targets + j) = done ? rdof[c->act_idx[j]] : o.t[j];
   for (int j = 0; j < c->n_act; ++j) FR(c->f_prev_actions + j) = done ? 0.f : o.acts[j];
@@ -553,17 +576,122 @@ LP_DEV void fs_env_step(const LaneModel* m, const FusedConfig* c, int i, int n,
 #undef IR
 }
 
+// One env's slot: the lane physics, its staged column (rows_f | rows_i |
+// actions | reset rows | DR | spawn), the active targets and the reset
+// pose's lowest tip. The output rows (rows_c | obs | reward | masks |
+// components) are assembled in the LpEnv union after the physics.
+#define FS_IN_CAP 240
+struct FsEnv {
+  LpEnv lp;
+  float in[FS_IN_CAP];
+  float t[18];
+  float mz;
+};
+#define FS_STRIDE ((int)(sizeof(FsEnv) / sizeof(float)))
+
+struct FsRows {  // word offsets of the staged rows
+  int ri, act, rst, drn, spw, in_end;  // in FsEnv.in
+  int obs, rew, msk, cmp, out_end;     // in the LpEnv union (rows_c at 0)
+};
+
+LP_DEV FsRows fs_rows(const FusedConfig* c) {
+  FsRows r;
+  r.ri = c->rows_f;
+  r.act = r.ri + c->rows_i;
+  r.rst = r.act + c->n_act;
+  r.drn = r.rst + c->rst_rows;
+  r.spw = r.drn + 4;
+  r.in_end = r.spw + 3;
+  r.obs = c->rows_c;
+  r.rew = r.obs + c->obs_dim;
+  r.msk = r.rew + 1;
+  r.cmp = r.msk + 4;
+  r.out_end = r.cmp + c->n_comp;
+  return r;
+}
+
+// One env's step (half-warp): the action pipeline and the state on lane 0 and
+// the lanes, the physics, the final FK, the spawn projection of the reset
+// pose (for every env: whether it resets is known only after the task step;
+// lp_min_site_z is the min_site_z kernel's code), then the rest on lane 0.
+LP_DEV void fs_env(const LaneModel* m, const FusedConfig* c, FsEnv* f, LpLane* Ls) {
+  LpEnv* s = &f->lp;
+  float* rf = f->in;
+  const FsRows o = fs_rows(c);
+  LP_WARP(if (lane == 0) { fs_actions(m, c, rf, f->in + o.act, f->t, s->tgt); f->mz = 0.f; }
+          LP_EACH_BODY(k, i, s->q[i] = rf[c->f_q + i]; s->qd[i] = rf[c->f_qd + i];)
+          if (lane < 3) {
+            s->box[lane] = rf[c->f_box_pos + lane];
+            s->box[7 + lane] = rf[c->f_box_linvel + lane];
+            s->box[10 + lane] = rf[c->f_box_angvel + lane];
+            s->spawn[lane] = rf[o.spw + lane];
+          }
+          if (lane < 4) { s->box[3 + lane] = rf[c->f_box_quat + lane]; s->drv[lane] = rf[c->f_dr[lane]]; });
+  for (int it = 0; it < m->total_substeps; ++it) lp_substep(m, s, Ls);
+  lp_fk(m, s->q, s->qd, s->spawn, s->kin, (float (*)[6])0, Ls);
+  float* u = (float*)&s->u;
+  if (c->has_proj)
+    lp_min_site_z(m, f->in + o.rst, c->proj_spawn, c->proj_site_mask, (float (*)[LP_KIN])u,
+                  u + LP_MAXB * LP_KIN, &f->mz, Ls);
+  LP_WARP(if (lane == 0)
+            fs_post(m, c, s, f->t, f->mz, f->in, (int*)(f->in + o.ri), f->in + o.act,
+                    f->in + o.rst, f->in + o.drn, u, u + o.obs, u + o.rew, (int*)(u + o.msk),
+                    u + o.cmp, (FsWork*)(u + LP_UNION_FLOATS - FS_WORK_FLOATS)););
+}
+
+LP_DEV void fs_stage_in(const FusedConfig* c, FsEnv* envs, int e0, int n, const float* rows_f,
+                        const int* rows_i, const float* act, const float* rst,
+                        const float* drn, const float* spw, int tid, int nthr) {
+  const FsRows o = fs_rows(c);
+  float* b = envs[0].in;
+  lp_stage_in(rows_f, c->rows_f, n, e0, b, FS_STRIDE, tid, nthr);
+  lp_stage_in(rows_i, c->rows_i, n, e0, (int*)(b + o.ri), FS_STRIDE, tid, nthr);
+  lp_stage_in(act, c->n_act, n, e0, b + o.act, FS_STRIDE, tid, nthr);
+  lp_stage_in(rst, c->rst_rows, n, e0, b + o.rst, FS_STRIDE, tid, nthr);
+  lp_stage_in(drn, 4, n, e0, b + o.drn, FS_STRIDE, tid, nthr);
+  lp_stage_in(spw, 3, n, e0, b + o.spw, FS_STRIDE, tid, nthr);
+}
+
+LP_DEV void fs_stage_out(const FusedConfig* c, const FsEnv* envs, int e0, int n, float* rows_f,
+                         int* rows_i, float* rows_c, float* obs, float* rew, int* msk,
+                         float* cmp, int tid, int nthr) {
+  const FsRows o = fs_rows(c);
+  const float* b = envs[0].in;
+  const float* u = (const float*)&envs[0].lp.u;
+  lp_stage_out(rows_f, c->rows_f, n, e0, b, FS_STRIDE, tid, nthr);
+  lp_stage_out(rows_i, c->rows_i, n, e0, (const int*)(b + o.ri), FS_STRIDE, tid, nthr);
+  lp_stage_out(rows_c, c->rows_c, n, e0, u, FS_STRIDE, tid, nthr);
+  lp_stage_out(obs, c->obs_dim, n, e0, u + o.obs, FS_STRIDE, tid, nthr);
+  lp_stage_out(rew, 1, n, e0, u + o.rew, FS_STRIDE, tid, nthr);
+  lp_stage_out(msk, 4, n, e0, (const int*)(u + o.msk), FS_STRIDE, tid, nthr);
+  lp_stage_out(cmp, c->n_comp, n, e0, u + o.cmp, FS_STRIDE, tid, nthr);
+}
+
 #ifdef __CUDACC__
-__global__ void fused_step_kernel(const LaneModel* __restrict__ m,
-                                  const FusedConfig* __restrict__ c, float* rows_f,
-                                  int* rows_i, const float* __restrict__ act,
-                                  const float* __restrict__ rst, const float* __restrict__ drn,
-                                  const float* __restrict__ spw, float* __restrict__ rows_c,
-                                  float* __restrict__ obs, float* __restrict__ rew,
-                                  int* __restrict__ msk, float* __restrict__ cmp, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  fs_env_step(m, c, i, n, rows_f, rows_i, act, rst, drn, spw, rows_c, obs, rew, msk, cmp);
+// rows_f / rows_i are read and written in place: a block stages all of its
+// envs' columns before any warp runs, and writes them back after all have.
+__global__ void __launch_bounds__(LP_THREADS, LP_MIN_BLOCKS)
+    fused_step_kernel(const LaneModel* __restrict__ m, const FusedConfig* __restrict__ c,
+                      float* rows_f, int* rows_i, const float* __restrict__ act,
+                      const float* __restrict__ rst, const float* __restrict__ drn,
+                      const float* __restrict__ spw, float* __restrict__ rows_c,
+                      float* __restrict__ obs, float* __restrict__ rew,
+                      int* __restrict__ msk, float* __restrict__ cmp, int n) {
+  extern __shared__ float lp_smem[];
+  FsEnv* envs = (FsEnv*)lp_smem;
+  const int e0 = blockIdx.x * LP_ENVS, tid = threadIdx.x, nthr = blockDim.x;
+  fs_stage_in(c, envs, e0, n, rows_f, rows_i, act, rst, drn, spw, tid, nthr);
+  __syncthreads();
+  const int e = tid / LP_W;
+  const bool live = e0 + e < n;
+  const unsigned mask = __ballot_sync(0xffffffffu, live);
+  if (live) {  // the env's half-warp takes the branch together
+    LpLane L;
+    L.mask = mask;
+    fs_env(m, c, &envs[e], &L);
+  }
+  __syncthreads();
+  fs_stage_out(c, envs, e0, n, rows_f, rows_i, rows_c, obs, rew, msk, cmp, tid, nthr);
 }
 #endif
 
@@ -577,25 +705,66 @@ int lane_model_layout(LP_LAYOUT_ARGS) {
   LP_STRUCT_LAYOUT(LaneModel, LANE_MODEL_FIELDS)
 }
 
+// The lane kernel's static sizes the model buffer must respect: mass-matrix
+// entries and lanes per env.
+int lane_caps(int* max_m, int* lanes_per_env) {
+  *max_m = LP_MAXM;
+  *lanes_per_env = LP_W;
+  return 0;
+}
+
+// Shared memory per env, envs per block, the design's budget per env
+// (bytes), and the words per env the staged input column and the output
+// rows may take.
+int fused_step_shared(int* bytes, int* envs_per_block, int* budget, int* in_cap,
+                      int* out_cap) {
+  *bytes = (int)sizeof(FsEnv);
+  *envs_per_block = LP_ENVS;
+  *budget = LP_SHARED_BUDGET;
+  *in_cap = FS_IN_CAP;
+  *out_cap = LP_UNION_FLOATS - FS_WORK_FLOATS;
+  return 0;
+}
+
 #ifdef __CUDACC__
+// Shared bytes per block and resident blocks per SM.
+int fused_step_occupancy(int* smem, int* blocks_per_sm) {
+  *smem = LP_ENVS * (int)sizeof(FsEnv);
+  return lp_prepare(fused_step_kernel, *smem, blocks_per_sm);
+}
+
 int fused_step_launch(const void* model, const void* cfg, float* rows_f, int* rows_i,
                       const float* act, const float* rst, const float* drn, const float* spw,
                       float* rows_c, float* obs, float* rew, int* msk, float* cmp, int n,
                       void* stream) {
-  int blocks = (n + FS_THREADS - 1) / FS_THREADS;
-  fused_step_kernel<<<blocks, FS_THREADS, 0, (cudaStream_t)stream>>>(
+  static int ready = -1;
+  const int smem = LP_ENVS * (int)sizeof(FsEnv);
+  if (ready < 0) ready = lp_prepare(fused_step_kernel, smem, (int*)0);
+  if (ready) return ready;
+  int blocks = (n + LP_ENVS - 1) / LP_ENVS;
+  fused_step_kernel<<<blocks, LP_THREADS, smem, (cudaStream_t)stream>>>(
       (const LaneModel*)model, (const FusedConfig*)cfg, rows_f, rows_i, act, rst, drn, spw,
       rows_c, obs, rew, msk, cmp, n);
   return (int)cudaGetLastError();
 }
 #else
-// Host build of the same per-env code (no CUDA): every env in a loop.
+// Host build of the same code (no CUDA): blocks in a loop, each warp phase a
+// loop over the lanes (in reverse order after lane_order_host(1)).
+void lane_order_host(int reverse) { lp_lane_reverse = reverse; }
+
 int fused_step_host(const void* model, const void* cfg, float* rows_f, int* rows_i,
                     const float* act, const float* rst, const float* drn, const float* spw,
                     float* rows_c, float* obs, float* rew, int* msk, float* cmp, int n) {
-  for (int i = 0; i < n; ++i)
-    fs_env_step((const LaneModel*)model, (const FusedConfig*)cfg, i, n, rows_f, rows_i, act,
-                rst, drn, spw, rows_c, obs, rew, msk, cmp);
+  const LaneModel* m = (const LaneModel*)model;
+  const FusedConfig* c = (const FusedConfig*)cfg;
+  FsEnv* envs = new FsEnv[LP_ENVS];
+  LpLane Ls[LP_W];
+  for (int e0 = 0; e0 < n; e0 += LP_ENVS) {
+    fs_stage_in(c, envs, e0, n, rows_f, rows_i, act, rst, drn, spw, 0, 1);
+    for (int e = 0; e < LP_ENVS && e0 + e < n; ++e) fs_env(m, c, &envs[e], Ls);
+    fs_stage_out(c, envs, e0, n, rows_f, rows_i, rows_c, obs, rew, msk, cmp, 0, 1);
+  }
+  delete[] envs;
   return 0;
 }
 #endif

@@ -4,29 +4,66 @@
 //
 // Replaces the lane simulator of dexrobot_isaac_tpu/physics/pallas_step.py
 // (build_lane_sim: fk_lane, contact_force, substep, min_site_z), which both
-// TPU kernels inline. One CUDA thread runs one env; the state is SoA rows x N
-// with envs contiguous (row r of env i at r*N + i), so every warp load and
-// store is coalesced. The model constants (tree, attach frames, joint axes,
+// TPU kernels inline. The model constants (tree, attach frames, joint axes,
 // inertias, collision spheres, pruned self-collision pairs, sites, limits,
-// gains) are DATA in a LaneModel buffer built once by the wrapper
-// (physics/lane_step.py), not trace-time unrolled code: loops run over bodies
-// with parent[i] < i.
+// gains, and the tree's levels, child lists and per-body contact lists) are
+// DATA in a LaneModel buffer built once by the wrapper (physics/lane_step.py),
+// not trace-time unrolled code. Lanes read it through the read-only data
+// path (a const __restrict__ global pointer): they index it by body and
+// sphere, which constant memory would serialize, and a copy in each block's
+// shared memory (~20 KB) cuts residency from 32 to 24 envs per SM, which
+// measured slower (utils/lane_probe.py `model_shared`).
 //
-// Simple first design: per-body arrays (26 x pos/quat/linvel/angvel, the
-// sparse mass matrix, the contact accumulators) live in per-thread local
-// memory. Register pressure and spills are its known cost; a warp or block
-// per env group with shared memory is later work.
+// Design: a half-warp (LP_W = 16 lanes) per env, two envs per warp, LP_ENVS
+// envs per block. Each lane owns up to two of the 26 bodies (its slots,
+// LaneModel.slot_body: each tree level in one slot, so a level phase runs
+// one slot); lane 15 also owns the box. What another lane must read lives in
+// the env's slice of shared memory (LpEnv); what only the owner reads lives
+// in that lane's registers (LpLane). Each substep is a fixed sequence of
+// phases separated by __syncwarp(); within a phase a lane writes only
+// values no other lane reads in that phase.
+//   1. FK and velocity propagation, one phase per tree level (root first;
+//      the level is the body's depth - 1, LaneModel.depth, n_levels levels);
+//      every lane first takes sin/cos of its bodies' half angles.
+//   2. Sphere poses and velocities and the box-contact flags, lanes over the
+//      39 spheres; then the forces, lanes over spheres (ground + box), the
+//      40 finger pairs and the 8 box corners, each into its own slot.
+//   3. Each body sums its own contacts (LaneModel.bc: its spheres, then its
+//      pairs, in index order, as the lane kernel does), adds gravity and
+//      forms its CRBA terms; the box lane sums the box's contact wrench
+//      (spheres, then corners, in index order) and integrates the box.
+//   4. Subtree sums of the wrenches and of T/K, one phase per level, deepest
+//      first; each body adds its children in descending index (the lane
+//      kernel's order: children after their own subtrees, i descending).
+//   5. Per body: Q_b and its row of the sparse mass matrix (ancestor pairs);
+//      then its rhs entry (own row, then descendants ascending) and the
+//      implicit-PD diagonal.
+//   6. The zero-fill-in LTL factorization fused with the L^T w = rhs solve:
+//      one phase per kk from nb-1 down; lanes run over the step's updates of
+//      kk's ancestors' rows and w entries (one entry each, LaneModel.ltl),
+//      with row kk scaled on the fly (every lane forms the same rsqrt), so
+//      row kk is never written while read. Each row's own scaling is applied
+//      when the forward solve reads it.
+//   7. L qd' = w by level, root first, fused with the integration and the
+//      joint-limit projection of each body's DOF.
+// No sum is split and none is reordered: every element's arithmetic is the
+// lane kernel's, in its order; no atomics, so the results are the same from
+// run to run.
 //
-// Per substep, as pallas_step.py substep: FK + velocity propagation, penalty
-// contacts (sphere-ground, pruned finger pairs, sphere-box, box corners-
-// ground) with the impulse clamp, gravity and contact wrenches summed per
-// subtree, CRBA composite inertias -> mass matrix on ancestor pairs, the
-// implicit-PD system, the zero-fill-in leaf-to-root LTL factorization and
-// its two triangular solves, integration with joint-limit projection, and
-// box integration with velocity caps.
+// What bounds it on the H100: ~5e5 f32 operations per env per control step
+// (16 substeps), ~2e9 at 4096 envs, ~30 us at 67 TFLOP/s; its bytes are a
+// tenth of that. This design is bound instead by its serial phases (10 FK
+// levels, 9 subtree levels, 26 LTL steps and 10 forward levels per substep),
+// in which few lanes work and each phase's latency chain (global model
+// reads, shared loads, one rsqrt) must be hidden by the other resident
+// env-warps: 32 envs (16 warps) per SM, the limit of both shared memory
+// (LpEnv ~6 KB per env) and registers (<= 128 per thread), so 4096 envs run
+// in one wave on 132 SMs.
 //
-// The file also compiles as plain C++ (no __CUDACC__), so the same arithmetic
-// can be built for the host.
+// The file also compiles as plain C++ (no __CUDACC__): each phase is a
+// function run once per lane, and the host build loops over the lanes where
+// the card has __syncwarp() (in forward or, for the lane-order test, reverse
+// order).
 #pragma once
 
 #include <math.h>
@@ -40,25 +77,54 @@
 #define LP_RSQRT(x) (1.0f / sqrtf(x))
 #endif
 
+#define LP_W 16        // lanes per env (a half-warp)
+#define LP_SLOTS 2     // bodies per lane (LaneModel.slot_body)
+#define LP_BOX_LANE (LP_W - 1)  // the lane that also owns the box
+#define LP_ENVS 8      // envs per block (4 warps)
+#define LP_THREADS (LP_ENVS * LP_W)
+// K1's and K2's blocks resident per SM, at least: 4 x 8 = 32 envs, which
+// caps the registers per thread at 65536 / (4 x 128) = 128
+#define LP_MIN_BLOCKS 4
+// the design's shared memory per env: an SM's 228 KB over LP_MIN_BLOCKS
+// blocks of LP_ENVS envs, less the 1 KB the card reserves per block
+#define LP_SHARED_BUDGET ((233472 / LP_MIN_BLOCKS - 1024) / LP_ENVS)
 #define LP_MAXB 26     // bodies = DOFs
 #define LP_MAXD 12     // max ancestor-chain depth (incl. self)
-#define LP_MAXS 48     // collision spheres
-#define LP_MAXSC 96    // pruned self-collision pairs
+#define LP_MAXM 208    // mass-matrix entries on ancestor pairs (sum of depths)
+#define LP_MAXS 40     // collision spheres
+#define LP_MAXSC 40    // pruned self-collision pairs
 #define LP_MAXSITE 16  // sites
+#define LP_MAXCH 8     // children per body
+#define LP_MAXBC 32    // contacts per body (its spheres and its pairs)
+#define LP_KIN 13      // per body: pos3 quat4 lin3 ang3
+#define LP_TRI (LP_MAXD * (LP_MAXD - 1) / 2)  // LTL updates per step, at most
+#define LP_TRI_ROUNDS 3  // LTL updates per lane held in registers at once
 
 // X-macro field list: the struct below and the layout table the wrapper
 // builds its numpy record from (lane_model_layout), so the layout is written
 // down here only. S = scalar, A = array. Every field is 4 bytes wide.
+// bc entries: force slot (spheres 0..ns-1, then pairs) | arm sphere << 8 |
+// 1 << 16 where the force acts with a minus sign (a pair's second body).
+// slot_body[k * LP_W + lane]: the lane's body in slot k, or -1; each tree
+// level lies in one slot where it fits. ltl[kk * LP_TRI + e], for the e-th
+// pair (ii, jj <= ii) of step kk's ancestor rows: index of M entry (anc[kk][ii],
+// jj) | ii << 16 | jj << 24. desc[desc_off[i] .. desc_off[i + 1]): body i's
+// descendants b, ascending: index of M entry (i, b) | b << 16.
 #define LANE_MODEL_FIELDS(S, A)                                              \
   S(int, nb) S(int, ns) S(int, n_sc) S(int, nsite) S(int, total_substeps)    \
-  S(int, has_box)                                                            \
+  S(int, has_box) S(int, n_levels)                                           \
   S(float, h) S(float, inv_h) S(float, gz) S(float, k_contact)               \
   S(float, d_contact) S(float, k_friction) S(float, beta_inv_h)              \
   S(float, max_depen) S(float, mu_hg) S(float, mu_hb) S(float, mu_bg)        \
   S(float, mu_hh) S(float, box_mass) S(float, box_inertia) S(float, half)    \
   A(int, parent, LP_MAXB) A(int, is_prism, LP_MAXB)                          \
   A(int, has_post, LP_MAXB) A(int, depth, LP_MAXB)                           \
-  A(int, anc, LP_MAXB * LP_MAXD)                                             \
+  A(int, anc, LP_MAXB * LP_MAXD) A(int, moff, LP_MAXB)                       \
+  A(int, desc_off, LP_MAXB + 1) A(int, desc, LP_MAXM)                       \
+  A(int, nchild, LP_MAXB)                                                    \
+  A(int, child, LP_MAXB * LP_MAXCH) A(int, nbc, LP_MAXB)                     \
+  A(int, bc, LP_MAXB * LP_MAXBC) A(int, slot_body, LP_SLOTS * LP_W)         \
+  A(int, ltl, LP_MAXB * LP_TRI)                                              \
   A(float, axis, LP_MAXB * 3) A(float, apos, LP_MAXB * 3)                    \
   A(float, aquat, LP_MAXB * 4) A(float, post, LP_MAXB * 4)                   \
   A(float, mass, LP_MAXB) A(float, subtree_mass, LP_MAXB)                    \
@@ -159,89 +225,203 @@ LP_DEV void lp_matTvec(const float* R, const float* v, float* o) {
   o[0] = x; o[1] = y; o[2] = z;
 }
 
-// ---------------------------------------------------------------- FK
-struct LpFk {
-  float pos[LP_MAXB][3], quat[LP_MAXB][4], lin[LP_MAXB][3], ang[LP_MAXB][3];
-  float axw[LP_MAXB][3], orig[LP_MAXB][3];
+LP_DEV void lp_add3(float* a, const float* b) { a[0] += b[0]; a[1] += b[1]; a[2] += b[2]; }
+LP_DEV void lp_sub3(float* a, const float* b) { a[0] -= b[0]; a[1] -= b[1]; a[2] -= b[2]; }
+
+// ---------------------------------------------------------------- env state
+// Per substep, the contact phases (dead once each body has summed its own).
+struct LpContactBuf {
+  float sp[LP_MAXS][3], sv[LP_MAXS][3];  // sphere world position, velocity
+  float F[LP_MAXS + LP_MAXSC][3];        // hand-side force: spheres (ground + box), pairs
+  float BW[LP_MAXS + 8][6];              // box-side force, torque: spheres, corners
+  float act[LP_MAXS];                    // 1 where the sphere touches the box
 };
 
-// FK + velocity propagation over the tree (pallas_step.py fk_lane).
-LP_DEV void lp_fk(const LaneModel* m, const float* q, const float* qd,
-                  const float* spawn, LpFk* k) {
+// Per substep, after the contact phases: the subtree sums, the sparse mass
+// matrix and the two triangular solves.
+struct LpTreeBuf {
+  float W[LP_MAXB][6];  // wrench about the world origin: force, torque
+  float T[LP_MAXB][6], K[LP_MAXB][3];  // CRBA: symmetric 3x3 (6 terms), m c
+  float M[LP_MAXM];     // row b at moff[b]: entry (anc[b][t], b); t = depth-1 the diagonal
+  float w[LP_MAXB], qdn[LP_MAXB], inv_d[LP_MAXB];
+};
+
+// One env's slice of shared memory: what crosses lanes.
+struct LpEnv {
+  float q[LP_MAXB], qd[LP_MAXB], tgt[LP_MAXB];
+  float box[13], spawn[3], drv[4];
+  float cf[LP_MAXB * 3], bf[3];  // the last substep's contact forces
+  float kin[LP_MAXB][LP_KIN];    // FK: pos3 quat4 lin3 ang3
+  float S[LP_MAXB][6];           // motion subspace (ang3, lin3)
+  float Rb[9];                   // the box's rotation
+  union {
+    LpContactBuf c;
+    LpTreeBuf t;
+  } u;  // also a kernel's output staging after the last substep
+};
+#define LP_UNION_FLOATS ((int)(sizeof(((LpEnv*)0)->u) / sizeof(float)))
+
+// One lane's registers: values only their owner reads, for each of its
+// bodies (slot k: body lane + LP_W * k).
+struct LpLane {
+  float sq[LP_SLOTS], cq[LP_SLOTS];           // sin, cos of the joint's half angle
+  float axw[LP_SLOTS][3], orig[LP_SLOTS][3];  // joint axis and anchor, world (the last FK)
+  float W[LP_SLOTS][6], T[LP_SLOTS][6], K[LP_SLOTS][3];  // wrench, CRBA terms (3 -> 4a)
+  float Q[LP_SLOTS];                          // generalized force
+  unsigned mask;                              // the warp's lanes with a live env
+};
+
+#ifdef __CUDACC__
+#define LP_UNROLL _Pragma("unroll")
+#else
+#define LP_UNROLL
+#endif
+
+// Each of the lane's bodies: `i` is the body in slot `k`.
+#define LP_EACH_BODY(k, i, ...)                        \
+  LP_UNROLL for (int k = 0; k < LP_SLOTS; ++k) {       \
+    const int i = m->slot_body[LP_W * k + lane];       \
+    if (i >= 0) { __VA_ARGS__ }                        \
+  }
+
+// One phase: the statements run on every lane of the env's half-warp, then
+// the lanes meet. On the card `Ls` points at the lane's own LpLane and the
+// two envs of a warp run the same phases (the model fixes their sequence);
+// on the host `Ls` holds the env's LP_W lanes and they run one after another.
+#ifdef __CUDACC__
+#define LP_WARP(...)                                  \
+  do {                                                \
+    {                                                 \
+      const int lane = (int)(threadIdx.x % LP_W);     \
+      LpLane& L = Ls[0];                              \
+      (void)lane; (void)L;                            \
+      __VA_ARGS__                                     \
+    }                                                 \
+    __syncwarp(Ls[0].mask);                           \
+  } while (0)
+#else
+static int lp_lane_reverse = 0;  // host build: run the lanes in reverse order
+#define LP_WARP(...)                                                        \
+  do {                                                                      \
+    for (int lp_k = 0; lp_k < LP_W; ++lp_k) {                               \
+      const int lane = lp_lane_reverse ? LP_W - 1 - lp_k : lp_k;            \
+      LpLane& L = Ls[lane];                                                 \
+      (void)lane; (void)L;                                                  \
+      __VA_ARGS__                                                           \
+    }                                                                       \
+  } while (0)
+#endif
+
+// ---------------------------------------------------------------- FK
+// Body i from its parent's pose and velocity (pallas_step.py fk_lane). qd
+// may be null (zero velocity); S, when given, receives the motion subspace.
+LP_DEV void lp_fk_body(const LaneModel* m, float (*kin)[LP_KIN], int i, float qi, float qdi,
+                       float sq, float cq, const float* spawn, float* S, float* axw,
+                       float* orig) {
   const float ident[4] = {0.f, 0.f, 0.f, 1.f};
   const float zero3[3] = {0.f, 0.f, 0.f};
-  for (int i = 0; i < m->nb; ++i) {
-    int p = m->parent[i];
-    const float *pp, *pq, *pv, *pw;
-    if (p < 0) {
-      pp = spawn; pq = ident; pv = zero3; pw = zero3;
-    } else {
-      pp = k->pos[p]; pq = k->quat[p]; pv = k->lin[p]; pw = k->ang[p];
-    }
-    float o[3], jq[4], a_w[3], t[3], d[3], v_o[3];
-    lp_qrot(pq, &m->apos[3 * i], t);
-    for (int c = 0; c < 3; ++c) o[c] = pp[c] + t[c];
-    lp_qmul(pq, &m->aquat[4 * i], jq);
-    lp_qrot(jq, &m->axis[3 * i], a_w);
-    for (int c = 0; c < 3; ++c) d[c] = o[c] - pp[c];
+  int p = m->parent[i];
+  const float *pp, *pq, *pv, *pw;
+  if (p < 0) {
+    pp = spawn; pq = ident; pv = zero3; pw = zero3;
+  } else {
+    pp = kin[p]; pq = kin[p] + 3; pv = kin[p] + 7; pw = kin[p] + 10;
+  }
+  float o[3], jq[4], a_w[3], t[3], d[3], v_o[3];
+  lp_qrot(pq, &m->apos[3 * i], t);
+  for (int c = 0; c < 3; ++c) o[c] = pp[c] + t[c];
+  lp_qmul(pq, &m->aquat[4 * i], jq);
+  lp_qrot(jq, &m->axis[3 * i], a_w);
+  for (int c = 0; c < 3; ++c) d[c] = o[c] - pp[c];
+  lp_cross(pw, d, t);
+  for (int c = 0; c < 3; ++c) v_o[c] = pv[c] + t[c];
+  float bp[3], bq[4], bv[3], bw[3];
+  if (m->is_prism[i]) {
+    for (int c = 0; c < 3; ++c) bp[c] = o[c] + a_w[c] * qi;
+    for (int c = 0; c < 4; ++c) bq[c] = jq[c];
+    for (int c = 0; c < 3; ++c) d[c] = bp[c] - o[c];
     lp_cross(pw, d, t);
-    for (int c = 0; c < 3; ++c) v_o[c] = pv[c] + t[c];
-    float* bp = k->pos[i];
-    float* bq = k->quat[i];
-    float* bv = k->lin[i];
-    float* bw = k->ang[i];
+    for (int c = 0; c < 3; ++c) bv[c] = v_o[c] + t[c] + a_w[c] * qdi;
+    for (int c = 0; c < 3; ++c) bw[c] = pw[c];
+  } else {
+    for (int c = 0; c < 3; ++c) bp[c] = o[c];
+    const float* ax = &m->axis[3 * i];
+    float jr[4] = {ax[0] * sq, ax[1] * sq, ax[2] * sq, cq};
+    lp_qmul(jq, jr, bq);
+    for (int c = 0; c < 3; ++c) bv[c] = v_o[c];
+    for (int c = 0; c < 3; ++c) bw[c] = pw[c] + a_w[c] * qdi;
+  }
+  if (m->has_post[i]) {
+    float tq[4];
+    lp_qmul(bq, &m->post[4 * i], tq);
+    for (int c = 0; c < 4; ++c) bq[c] = tq[c];
+  }
+  float* k = kin[i];
+  for (int c = 0; c < 3; ++c) { k[c] = bp[c]; k[7 + c] = bv[c]; k[10 + c] = bw[c]; }
+  for (int c = 0; c < 4; ++c) k[3 + c] = bq[c];
+  for (int c = 0; c < 3; ++c) { axw[c] = a_w[c]; orig[c] = o[c]; }
+  if (S) {  // S_j = (ang, lin): prismatic (0, a), revolute (a, o x a)
     if (m->is_prism[i]) {
-      for (int c = 0; c < 3; ++c) bp[c] = o[c] + a_w[c] * q[i];
-      for (int c = 0; c < 4; ++c) bq[c] = jq[c];
-      for (int c = 0; c < 3; ++c) d[c] = bp[c] - o[c];
-      lp_cross(pw, d, t);
-      for (int c = 0; c < 3; ++c) bv[c] = v_o[c] + t[c] + a_w[c] * qd[i];
-      for (int c = 0; c < 3; ++c) bw[c] = pw[c];
+      for (int c = 0; c < 3; ++c) { S[c] = 0.f; S[3 + c] = a_w[c]; }
     } else {
-      for (int c = 0; c < 3; ++c) bp[c] = o[c];
-      float hq = q[i] * 0.5f;
-      float sq = sinf(hq), cq = cosf(hq);
-      const float* ax = &m->axis[3 * i];
-      float jr[4] = {ax[0] * sq, ax[1] * sq, ax[2] * sq, cq};
-      lp_qmul(jq, jr, bq);
-      for (int c = 0; c < 3; ++c) bv[c] = v_o[c];
-      for (int c = 0; c < 3; ++c) bw[c] = pw[c] + a_w[c] * qd[i];
+      for (int c = 0; c < 3; ++c) S[c] = a_w[c];
+      lp_cross(o, a_w, S + 3);
     }
-    if (m->has_post[i]) {
-      float tq[4];
-      lp_qmul(bq, &m->post[4 * i], tq);
-      for (int c = 0; c < 4; ++c) bq[c] = tq[c];
-    }
-    for (int c = 0; c < 3; ++c) { k->axw[i][c] = a_w[c]; k->orig[i][c] = o[c]; }
   }
 }
 
-LP_DEV void lp_site(const LaneModel* m, const LpFk* k, int s, float* pos, float* quat) {
+// FK phase of tree level `lev` (bodies of depth lev + 1); at level 0 every
+// lane first takes sin/cos of its own half angle.
+LP_DEV void lp_fk_phase(const LaneModel* m, int lev, int lane, LpLane& L, const float* q,
+                        const float* qd, const float* spawn, float (*kin)[LP_KIN],
+                        float (*S)[6]) {
+  LP_EACH_BODY(k, i,
+    if (lev == 0) {
+      float hq = q[i] * 0.5f;
+      L.sq[k] = sinf(hq);
+      L.cq[k] = cosf(hq);
+    }
+    if (m->depth[i] == lev + 1)
+      lp_fk_body(m, kin, i, q[i], qd ? qd[i] : 0.f, L.sq[k], L.cq[k], spawn,
+                 S ? S[i] : (float*)0, L.axw[k], L.orig[k]);)
+}
+
+// The whole FK of pose q (qd null: zero velocity) into kin, level by level.
+LP_DEV void lp_fk(const LaneModel* m, const float* q, const float* qd, const float* spawn,
+                  float (*kin)[LP_KIN], float (*S)[6], LpLane* Ls) {
+  for (int lev = 0; lev < m->n_levels; ++lev)
+    LP_WARP(lp_fk_phase(m, lev, lane, L, q, qd, spawn, kin, S););
+}
+
+LP_DEV void lp_site(const LaneModel* m, const float (*kin)[LP_KIN], int s, float* pos,
+                    float* quat) {
   int b = m->site_b[s];
   float t[3];
-  lp_qrot(k->quat[b], &m->site_pos[3 * s], t);
-  for (int c = 0; c < 3; ++c) pos[c] = k->pos[b][c] + t[c];
-  lp_qmul(k->quat[b], &m->site_quat[4 * s], quat);
+  lp_qrot(kin[b] + 3, &m->site_pos[3 * s], t);
+  for (int c = 0; c < 3; ++c) pos[c] = kin[b][c] + t[c];
+  lp_qmul(kin[b] + 3, &m->site_quat[4 * s], quat);
 }
 
 // Lowest world z over the sites in `site_mask` at pose q, zero velocity
-// (pallas_step.py min_site_z): the spawn-validity projection's FK, shared by
-// the factory's reset path and the fused kernel's reset rows.
-LP_DEV float lp_min_site_z(const LaneModel* m, const float* q, const float* spawn,
-                           int site_mask, LpFk* k) {
-  float qd0[LP_MAXB];
-  for (int i = 0; i < m->nb; ++i) qd0[i] = 0.f;
-  lp_fk(m, q, qd0, spawn, k);
-  float mz = INFINITY;
-  for (int s = 0; s < m->nsite; ++s) {
-    if (!((site_mask >> s) & 1)) continue;
+// (pallas_step.py min_site_z), into *out: the spawn-validity projection's FK,
+// shared by the min_site_z kernel (the factory's reset path) and the fused
+// kernel's reset rows. kin and zs (LP_MAXSITE floats) are scratch.
+LP_DEV void lp_min_site_z(const LaneModel* m, const float* q, const float* spawn,
+                          int site_mask, float (*kin)[LP_KIN], float* zs, float* out,
+                          LpLane* Ls) {
+  lp_fk(m, q, (const float*)0, spawn, kin, (float (*)[6])0, Ls);
+  LP_WARP(for (int s = lane; s < m->nsite; s += LP_W) {
     int b = m->site_b[s];
     float t[3];
-    lp_qrot(k->quat[b], &m->site_pos[3 * s], t);
-    float z = k->pos[b][2] + t[2];
-    mz = fminf(mz, z);
-  }
-  return mz;
+    lp_qrot(kin[b] + 3, &m->site_pos[3 * s], t);
+    zs[s] = kin[b][2] + t[2];
+  });
+  LP_WARP(if (lane == 0) {
+    float mz = INFINITY;
+    for (int s = 0; s < m->nsite; ++s)
+      if ((site_mask >> s) & 1) mz = fminf(mz, zs[s]);
+    *out = mz;
+  });
 }
 
 // ---------------------------------------------------------------- contacts
@@ -286,69 +466,48 @@ LP_DEV float lp_box_geo(const LaneModel* m, const float* R, const float* bpos,
   return g->dist > 1e-9f ? r - g->dist : r + gap_min;
 }
 
-struct LpScratch {
-  LpFk fk;
-  float sp[LP_MAXS][3], sv[LP_MAXS][3];
-  float bF[LP_MAXB][3], bN[LP_MAXB][3];
-  float T[LP_MAXB][6], K[LP_MAXB][3];
-  float ftop[LP_MAXB][3], fbot[LP_MAXB][3];
-  float M[LP_MAXB][LP_MAXD];  // M[b][t]: entry (anc[b][t], b); t = depth-1 is the diagonal
-  float Q[LP_MAXB], rhs[LP_MAXB], inv_d[LP_MAXB], w[LP_MAXB], qdn[LP_MAXB];
-};
-
-LP_DEV void lp_add3(float* a, const float* b) { a[0] += b[0]; a[1] += b[1]; a[2] += b[2]; }
-LP_DEV void lp_sub3(float* a, const float* b) { a[0] -= b[0]; a[1] -= b[1]; a[2] -= b[2]; }
-
-// One integrator substep (pallas_step.py substep). q, qd (nb), box (13) are
-// updated in place; cf (nb*3) and bf (3) receive this substep's reported
-// body contact forces and the box's net contact force.
-LP_DEV void lp_substep(const LaneModel* m, float* q, float* qd, float* box,
-                       const float* tgt, const float* spawn, const float* drv,
-                       float* cf, float* bf, LpScratch* s) {
-  const int nb = m->nb;
-  const float h = m->h, gz = m->gz;
-  const float kp_s = drv[0], kd_s = drv[1], bm_s = drv[2], fr_s = drv[3];
-  LpFk* k = &s->fk;
-  lp_fk(m, q, qd, spawn, k);
-
-  for (int i = 0; i < nb; ++i)
-    for (int c = 0; c < 3; ++c) { cf[3 * i + c] = 0.f; s->bF[i][c] = 0.f; s->bN[i][c] = 0.f; }
-  float box_f[3] = {0.f, 0.f, 0.f}, box_t[3] = {0.f, 0.f, 0.f};
-
-  for (int j = 0; j < m->ns; ++j) {
-    int b = m->sb[j];
+// ---------------------------------------------------------------- substep phases
+// 2a. Sphere poses and velocities; the box-contact flags.
+LP_DEV void lp_spheres_phase(const LaneModel* m, LpEnv* s, int lane) {
+  LpContactBuf* cb = &s->u.c;
+  for (int j = lane; j < m->ns; j += LP_W) {
+    const float* bk = s->kin[m->sb[j]];
     float t[3], d[3];
-    lp_qrot(k->quat[b], &m->spos[3 * j], t);
-    for (int c = 0; c < 3; ++c) s->sp[j][c] = k->pos[b][c] + t[c];
-    for (int c = 0; c < 3; ++c) d[c] = s->sp[j][c] - k->pos[b][c];
-    lp_cross(k->ang[b], d, t);
-    for (int c = 0; c < 3; ++c) s->sv[j][c] = k->lin[b][c] + t[c];
+    lp_qrot(bk + 3, &m->spos[3 * j], t);
+    for (int c = 0; c < 3; ++c) cb->sp[j][c] = bk[c] + t[c];
+    for (int c = 0; c < 3; ++c) d[c] = cb->sp[j][c] - bk[c];
+    lp_cross(bk + 10, d, t);
+    for (int c = 0; c < 3; ++c) cb->sv[j][c] = bk[7 + c] + t[c];
+    if (m->has_box) {
+      LpBoxGeo g;
+      float depth = lp_box_geo(m, s->Rb, s->box, cb->sp[j], m->srad[j], &g);
+      cb->act[j] = depth > 0.f ? 1.f : 0.f;
+    }
   }
+}
 
-  const float* bpos = box;
-  const float* bquat = box + 3;
-  const float* blin = box + 7;
-  const float* bang = box + 10;
-  float Rb[9];
+// 2b. Contact forces: spheres vs ground and box, finger pairs, box corners
+// vs ground, each into its own slot.
+LP_DEV void lp_forces_phase(const LaneModel* m, LpEnv* s, int lane) {
+  LpContactBuf* cb = &s->u.c;
+  const float h = m->h, gz = m->gz;
+  const float bm_s = s->drv[2], fr_s = s->drv[3];
+  const float* Rb = s->Rb;
+  const float* bpos = s->box;
+  const float* blin = s->box + 7;
+  const float* bang = s->box + 10;
+  const float up[3] = {0.f, 0.f, 1.f};
   float inv_box_mass = 0.f, inv_box_in = 0.f, share_bm = 0.f;
   if (m->has_box) {
     inv_box_mass = 1.0f / (m->box_mass * bm_s);
     inv_box_in = 1.0f / (m->box_inertia * bm_s);
-    lp_rotmat(bquat, Rb);
     float n_act = 0.f;
-    for (int j = 0; j < m->ns; ++j) {
-      LpBoxGeo g;
-      float depth = lp_box_geo(m, Rb, bpos, s->sp[j], m->srad[j], &g);
-      n_act += depth > 0.f ? 1.f : 0.f;
-    }
+    for (int j = 0; j < m->ns; ++j) n_act += cb->act[j];
     share_bm = fmaxf(n_act, 1.0f) * inv_box_mass;
   }
-
-  const float up[3] = {0.f, 0.f, 1.f};
-  for (int j = 0; j < m->ns; ++j) {
-    int b = m->sb[j];
-    const float* sp = s->sp[j];
-    const float* sv = s->sv[j];
+  for (int j = lane; j < m->ns; j += LP_W) {
+    const float* sp = cb->sp[j];
+    const float* sv = cb->sv[j];
     float r = m->srad[j], meff = m->smeff[j];
     float f[3];
     lp_contact_force(m, r - sp[2], up, sv, m->mu_hg * fr_s, meff, meff, f);
@@ -390,110 +549,110 @@ LP_DEV void lp_substep(const LaneModel* m, float* q, float* qd, float* box,
       lp_cross(r_c, t_hat, rxt);
       float ang_t = lp_dot(rxt, rxt) * inv_box_in;
       float m_red_t = 1.0f / (1.0f / meff + share_bm + ang_t);
-      float fb[3], react[3];
+      float fb[3];
       lp_contact_force(m, depth_b, nw, rel, m->mu_hb * fr_s, m_red_n, m_red_t, fb);
       lp_add3(f, fb);
-      for (int c = 0; c < 3; ++c) react[c] = -fb[c];
-      lp_add3(box_f, react);
-      lp_cross(r_c, react, t);
-      lp_add3(box_t, t);
+      float* bw = cb->BW[j];
+      for (int c = 0; c < 3; ++c) bw[c] = -fb[c];
+      lp_cross(r_c, bw, bw + 3);
     }
-    float t[3];
-    lp_add3(&cf[3 * b], f);
-    lp_add3(s->bF[b], f);
-    lp_cross(sp, f, t);
-    lp_add3(s->bN[b], t);
+    for (int c = 0; c < 3; ++c) cb->F[j][c] = f[c];
   }
-
   // finger-finger self-collision over the pruned pairs: +f on sphere i at its
   // center, -f on sphere j
-  for (int p = 0; p < m->n_sc; ++p) {
+  for (int p = lane; p < m->n_sc; p += LP_W) {
     int si = m->sc_i[p], sj = m->sc_j[p];
-    int bi = m->sb[si], bj = m->sb[sj];
-    float d3[3], rel[3], n3[3], f[3], t[3];
+    float d3[3], rel[3], n3[3];
     for (int c = 0; c < 3; ++c) {
-      d3[c] = s->sp[si][c] - s->sp[sj][c];
-      rel[c] = s->sv[si][c] - s->sv[sj][c];
+      d3[c] = cb->sp[si][c] - cb->sp[sj][c];
+      rel[c] = cb->sv[si][c] - cb->sv[sj][c];
     }
     float dist = sqrtf(lp_dot(d3, d3) + 1e-18f);
     float inv = 1.0f / (dist + 1e-9f);
     for (int c = 0; c < 3; ++c) n3[c] = d3[c] * inv;
-    lp_contact_force(m, m->sc_rsum[p] - dist, n3, rel, m->mu_hh * fr_s,
-                     m->sc_meff[p], m->sc_meff[p], f);
-    lp_add3(&cf[3 * bi], f);
-    lp_add3(s->bF[bi], f);
-    lp_cross(s->sp[si], f, t);
-    lp_add3(s->bN[bi], t);
-    lp_sub3(&cf[3 * bj], f);
-    lp_sub3(s->bF[bj], f);
-    lp_cross(s->sp[sj], f, t);
-    lp_sub3(s->bN[bj], t);
+    lp_contact_force(m, m->sc_rsum[p] - dist, n3, rel, m->mu_hh * fr_s, m->sc_meff[p],
+                     m->sc_meff[p], cb->F[m->ns + p]);
   }
-
-  if (m->has_box) {
-    // box corners vs ground
-    for (int c8 = 0; c8 < 8; ++c8) {
-      float cl[3] = {(c8 & 4) ? m->half : -m->half, (c8 & 2) ? m->half : -m->half,
-                     (c8 & 1) ? m->half : -m->half};
-      float cw[3], r_c[3], t[3], vc[3], fc[3];
-      lp_matvec(Rb, cl, t);
-      for (int c = 0; c < 3; ++c) { cw[c] = bpos[c] + t[c]; r_c[c] = cw[c] - bpos[c]; }
-      float cwz = cw[2];
-      lp_cross(bang, r_c, t);
-      for (int c = 0; c < 3; ++c) vc[c] = blin[c] + t[c];
-      vc[2] = vc[2] + gz * h;  // the box is the first body here: its kick adds
-      lp_cross(r_c, up, t);
-      float ang8 = lp_dot(t, t) * inv_box_in;
-      float m_c = 1.0f / (4.0f * inv_box_mass + ang8);
-      lp_contact_force(m, -cwz, up, vc, m->mu_bg * fr_s, m_c, m_c, fc);
-      lp_add3(box_f, fc);
-      lp_cross(r_c, fc, t);
-      lp_add3(box_t, t);
-    }
+  // box corners vs ground
+  for (int c8 = lane; m->has_box && c8 < 8; c8 += LP_W) {
+    float cl[3] = {(c8 & 4) ? m->half : -m->half, (c8 & 2) ? m->half : -m->half,
+                   (c8 & 1) ? m->half : -m->half};
+    float cw[3], r_c[3], t[3], vc[3];
+    lp_matvec(Rb, cl, t);
+    for (int c = 0; c < 3; ++c) { cw[c] = bpos[c] + t[c]; r_c[c] = cw[c] - bpos[c]; }
+    float cwz = cw[2];
+    lp_cross(bang, r_c, t);
+    for (int c = 0; c < 3; ++c) vc[c] = blin[c] + t[c];
+    vc[2] = vc[2] + gz * h;  // the box is the first body here: its kick adds
+    lp_cross(r_c, up, t);
+    float ang8 = lp_dot(t, t) * inv_box_in;
+    float m_c = 1.0f / (4.0f * inv_box_mass + ang8);
+    float* bw = cb->BW[m->ns + c8];
+    lp_contact_force(m, -cwz, up, vc, m->mu_bg * fr_s, m_c, m_c, bw);
+    lp_cross(r_c, bw, bw + 3);
   }
+}
 
-  // gravity at each body's COM, then subtree sums (children before parents)
-  float Rall[LP_MAXB][9], cw_all[LP_MAXB][3];
-  for (int i = 0; i < nb; ++i) {
-    if (m->mass[i] == 0.f) continue;
-    lp_rotmat(k->quat[i], Rall[i]);
+// Box integration with PhysX-style velocity caps (box lane).
+LP_DEV void lp_box_integrate(const LaneModel* m, float* box, const float* box_f,
+                             const float* box_t, float inv_box_mass, float inv_box_in) {
+  const float h = m->h;
+  const float* bpos = box;
+  const float* bquat = box + 3;
+  const float* blin = box + 7;
+  const float* bang = box + 10;
+  float lv[3] = {blin[0] + h * (box_f[0] * inv_box_mass),
+                 blin[1] + h * (box_f[1] * inv_box_mass),
+                 blin[2] + h * (box_f[2] * inv_box_mass + m->gz)};
+  float hs = h * inv_box_in;
+  float av[3] = {bang[0] + box_t[0] * hs, bang[1] + box_t[1] * hs, bang[2] + box_t[2] * hs};
+  float ln = sqrtf(lp_dot(lv, lv) + 1e-18f);
+  float ls = fminf(1.0f, 10.0f / (ln + 1e-9f));
+  for (int c = 0; c < 3; ++c) lv[c] *= ls;
+  float an = sqrtf(lp_dot(av, av) + 1e-18f);
+  float as = fminf(1.0f, 64.0f / (an + 1e-9f));
+  for (int c = 0; c < 3; ++c) av[c] *= as;
+  float oq[4] = {av[0], av[1], av[2], 0.f}, dq[4], qn4[4];
+  lp_qmul(oq, bquat, dq);
+  for (int c = 0; c < 4; ++c) qn4[c] = bquat[c] + 0.5f * h * dq[c];
+  float nrm = sqrtf(qn4[0] * qn4[0] + qn4[1] * qn4[1] + qn4[2] * qn4[2] + qn4[3] * qn4[3] + 1e-18f);
+  float inrm = 1.0f / nrm;
+  for (int c = 0; c < 3; ++c) box[c] = bpos[c] + lv[c] * h;
+  for (int c = 0; c < 4; ++c) box[3 + c] = qn4[c] * inrm;
+  for (int c = 0; c < 3; ++c) { box[7 + c] = lv[c]; box[10 + c] = av[c]; }
+}
+
+// 3. Body lanes: own contacts (spheres, then pairs, in index order), gravity
+// at the COM and the CRBA terms about the world origin (T = Ic_w - m
+// [c]x[c]x, 6 terms of the symmetric 3x3; K = m c), into registers. Box lane:
+// the box's contact wrench (spheres, then corners) and its integration.
+LP_DEV void lp_body_own(const LaneModel* m, LpEnv* s, int i, float* W, float* T, float* K) {
+  const LpContactBuf* cb = &s->u.c;
+  float cf[3] = {0.f, 0.f, 0.f}, bF[3] = {0.f, 0.f, 0.f}, bN[3] = {0.f, 0.f, 0.f};
+  for (int k = 0; k < m->nbc[i]; ++k) {
+    int e = m->bc[i * LP_MAXBC + k];
+    const float* f = cb->F[e & 255];
     float t[3];
-    lp_matvec(Rall[i], &m->com[3 * i], t);
-    for (int c = 0; c < 3; ++c) cw_all[i][c] = k->pos[i][c] + t[c];
-    float fg[3] = {0.f, 0.f, m->mass[i] * gz};
-    s->bF[i][2] += fg[2];
-    lp_cross(cw_all[i], fg, t);
-    lp_add3(s->bN[i], t);
+    lp_cross(cb->sp[(e >> 8) & 255], f, t);
+    if (e >> 16) { lp_sub3(cf, f); lp_sub3(bF, f); lp_sub3(bN, t); }
+    else { lp_add3(cf, f); lp_add3(bF, f); lp_add3(bN, t); }
   }
-  for (int i = nb - 1; i >= 0; --i) {
-    int p = m->parent[i];
-    if (p >= 0) { lp_add3(s->bF[p], s->bF[i]); lp_add3(s->bN[p], s->bN[i]); }
-  }
-  // motion subspace S_j = (ang, lin): prismatic (0, a), revolute (a, o x a)
-  float Sa[LP_MAXB][3], Sl[LP_MAXB][3];
-  for (int j = 0; j < nb; ++j) {
-    if (m->is_prism[j]) {
-      for (int c = 0; c < 3; ++c) { Sa[j][c] = 0.f; Sl[j][c] = k->axw[j][c]; }
-      s->Q[j] = lp_dot(k->axw[j], s->bF[j]);
-    } else {
-      for (int c = 0; c < 3; ++c) Sa[j][c] = k->axw[j][c];
-      lp_cross(k->orig[j], k->axw[j], Sl[j]);
-      s->Q[j] = lp_dot(Sa[j], s->bN[j]) + lp_dot(Sl[j], s->bF[j]);
-    }
-  }
-
-  // CRBA: per body about the world origin T = Ic_w - m [c]x[c]x (6 terms of
-  // the symmetric 3x3), K = m c; composited over subtrees
-  for (int i = 0; i < nb; ++i) {
-    float mi = m->mass[i];
-    if (mi == 0.f) {
-      for (int c = 0; c < 6; ++c) s->T[i][c] = 0.f;
-      for (int c = 0; c < 3; ++c) s->K[i][c] = 0.f;
-      continue;
-    }
-    const float* R = Rall[i];
+  for (int c = 0; c < 3; ++c) s->cf[3 * i + c] = cf[c];
+  float mi = m->mass[i];
+  if (mi == 0.f) {
+    for (int c = 0; c < 6; ++c) T[c] = 0.f;
+    for (int c = 0; c < 3; ++c) K[c] = 0.f;
+  } else {
+    const float* k = s->kin[i];
+    float R[9], cw[3], t[3];
+    lp_rotmat(k + 3, R);
+    lp_matvec(R, &m->com[3 * i], t);
+    for (int c = 0; c < 3; ++c) cw[c] = k[c] + t[c];
+    float fg[3] = {0.f, 0.f, mi * m->gz};
+    bF[2] += fg[2];
+    lp_cross(cw, fg, t);
+    lp_add3(bN, t);
     const float* Ic = &m->inertia[9 * i];
-    const float* cw = cw_all[i];
     float RI[9];
     for (int a = 0; a < 3; ++a)
       for (int c = 0; c < 3; ++c)
@@ -505,128 +664,226 @@ LP_DEV void lp_substep(const LaneModel* m, float* q, float* qd, float* box,
       float icw = RI[3 * a] * R[3 * c] + RI[3 * a + 1] * R[3 * c + 1] + RI[3 * a + 2] * R[3 * c + 2];
       float cc = cw[a] * cw[c];
       if (a == c) cc = cc - c2;
-      s->T[i][e] = icw - mi * cc;
+      T[e] = icw - mi * cc;
     }
-    for (int c = 0; c < 3; ++c) s->K[i][c] = cw[c] * mi;
+    for (int c = 0; c < 3; ++c) K[c] = cw[c] * mi;
   }
-  for (int i = nb - 1; i >= 0; --i) {
-    int p = m->parent[i];
-    if (p < 0) continue;
-    for (int c = 0; c < 6; ++c) s->T[p][c] += s->T[i][c];
-    lp_add3(s->K[p], s->K[i]);
-  }
-  // f_j = Ic_j S_j: ftop = T a + K x v ; fbot = -(K x a) + m v
-  for (int j = 0; j < nb; ++j) {
-    const float* a3 = Sa[j];
-    const float* v3 = Sl[j];
-    const float* t6 = s->T[j];
-    float Ta[3] = {t6[0] * a3[0] + t6[1] * a3[1] + t6[2] * a3[2],
-                   t6[1] * a3[0] + t6[3] * a3[1] + t6[4] * a3[2],
-                   t6[2] * a3[0] + t6[4] * a3[1] + t6[5] * a3[2]};
-    float kv[3], ka[3];
-    lp_cross(s->K[j], v3, kv);
-    lp_cross(s->K[j], a3, ka);
-    float ms = m->subtree_mass[j];
-    for (int c = 0; c < 3; ++c) {
-      s->ftop[j][c] = Ta[c] + kv[c];
-      s->fbot[j][c] = v3[c] * ms - ka[c];
-    }
-  }
-  // mass matrix on ancestor pairs: entry (i, b) = S_i . f_b for i in anc(b)
-  for (int b = 0; b < nb; ++b) {
-    int D = m->depth[b];
-    for (int t = 0; t < D; ++t) {
-      int i = m->anc[b * LP_MAXD + t];
-      s->M[b][t] = lp_dot(Sa[i], s->ftop[b]) + lp_dot(Sl[i], s->fbot[b]);
-    }
-  }
-  // implicit PD: A = M + diag(arm + h kd + h^2 kp); rhs = (M + arm) qd + h(kp(tgt - q) + Q)
-  for (int i = 0; i < nb; ++i) s->rhs[i] = 0.f;
-  for (int b = 0; b < nb; ++b) {
-    int D = m->depth[b];
-    for (int t = 0; t < D; ++t) {
-      int a = m->anc[b * LP_MAXD + t];
-      s->rhs[b] += s->M[b][t] * qd[a];
-      if (a != b) s->rhs[a] += s->M[b][t] * qd[b];
-    }
-  }
-  for (int i = 0; i < nb; ++i) {
-    float kp_i = m->kp[i] * kp_s;
-    float acc = s->rhs[i] + m->arm[i] * qd[i];
-    s->rhs[i] = acc + h * (kp_i * (tgt[i] - q[i]) + s->Q[i]);
-    int D = m->depth[i];
-    s->M[i][D - 1] = s->M[i][D - 1] + m->arm[i] + (h * m->kd[i]) * kd_s + (h * h) * kp_i;
-  }
-  // sparse LTL factorization, leaf to root (zero fill-in: L's nonzeros are
-  // exactly the ancestor pairs; parent[i] < i)
-  for (int kk = nb - 1; kk >= 0; --kk) {
-    int D = m->depth[kk];
-    float d = LP_RSQRT(s->M[kk][D - 1]);
-    s->inv_d[kk] = d;
-    s->M[kk][D - 1] *= d;
-    for (int t = 0; t < D - 1; ++t) s->M[kk][t] *= d;
-    for (int ii = 0; ii < D - 1; ++ii) {
-      int i = m->anc[kk * LP_MAXD + ii];  // i's chain is anc[kk][0..ii]
-      for (int jj = 0; jj <= ii; ++jj) s->M[i][jj] -= s->M[kk][ii] * s->M[kk][jj];
-    }
-  }
-  // L^T w = rhs: descendants feed ancestors (descending)
-  for (int i = 0; i < nb; ++i) s->w[i] = s->rhs[i];
-  for (int i = nb - 1; i >= 0; --i) {
-    s->w[i] *= s->inv_d[i];
-    int D = m->depth[i];
-    for (int t = 0; t < D - 1; ++t) s->w[m->anc[i * LP_MAXD + t]] -= s->M[i][t] * s->w[i];
-  }
-  // L qd' = w: ancestors feed descendants (ascending)
-  for (int i = 0; i < nb; ++i) {
-    float v = s->w[i];
-    int D = m->depth[i];
-    for (int t = 0; t < D - 1; ++t) v -= s->M[i][t] * s->qdn[m->anc[i * LP_MAXD + t]];
-    s->qdn[i] = v * s->inv_d[i];
-  }
-  // integration with joint-limit projection
-  for (int i = 0; i < nb; ++i) {
-    float v = s->qdn[i];
-    float qn = q[i] + h * v;
-    float lo = m->lower[i], up_ = m->upper[i];
-    bool low_hit = qn < lo, high_hit = qn > up_;
-    qn = fminf(fmaxf(qn, lo), up_);
-    if (low_hit && v < 0.f) v = 0.f;
-    if (high_hit && v > 0.f) v = 0.f;
-    q[i] = qn;
-    qd[i] = v;
-  }
-
-  // box integration with PhysX-style velocity caps
-  if (m->has_box) {
-    float lv[3] = {blin[0] + h * (box_f[0] * inv_box_mass),
-                   blin[1] + h * (box_f[1] * inv_box_mass),
-                   blin[2] + h * (box_f[2] * inv_box_mass + gz)};
-    float hs = h * inv_box_in;
-    float av[3] = {bang[0] + box_t[0] * hs, bang[1] + box_t[1] * hs, bang[2] + box_t[2] * hs};
-    float ln = sqrtf(lp_dot(lv, lv) + 1e-18f);
-    float ls = fminf(1.0f, 10.0f / (ln + 1e-9f));
-    for (int c = 0; c < 3; ++c) lv[c] *= ls;
-    float an = sqrtf(lp_dot(av, av) + 1e-18f);
-    float as = fminf(1.0f, 64.0f / (an + 1e-9f));
-    for (int c = 0; c < 3; ++c) av[c] *= as;
-    float oq[4] = {av[0], av[1], av[2], 0.f}, dq[4], qn4[4];
-    lp_qmul(oq, bquat, dq);
-    for (int c = 0; c < 4; ++c) qn4[c] = bquat[c] + 0.5f * h * dq[c];
-    float nrm = sqrtf(qn4[0] * qn4[0] + qn4[1] * qn4[1] + qn4[2] * qn4[2] + qn4[3] * qn4[3] + 1e-18f);
-    float inrm = 1.0f / nrm;
-    for (int c = 0; c < 3; ++c) box[c] = bpos[c] + lv[c] * h;
-    for (int c = 0; c < 4; ++c) box[3 + c] = qn4[c] * inrm;
-    for (int c = 0; c < 3; ++c) { box[7 + c] = lv[c]; box[10 + c] = av[c]; }
-  }
-  for (int c = 0; c < 3; ++c) bf[c] = box_f[c];
+  for (int c = 0; c < 3; ++c) { W[c] = bF[c]; W[3 + c] = bN[c]; }
 }
 
-// Column loads/stores of SoA rows (row r of env i at r*n + i).
-LP_DEV void lp_load(const float* src, int rows, int n, int i, float* dst) {
-  for (int r = 0; r < rows; ++r) dst[r] = src[(size_t)r * n + i];
+LP_DEV void lp_body_phase(const LaneModel* m, LpEnv* s, LpLane& L, int lane) {
+  const LpContactBuf* cb = &s->u.c;
+  LP_EACH_BODY(k, i, lp_body_own(m, s, i, L.W[k], L.T[k], L.K[k]);)
+  if (lane == LP_BOX_LANE) {
+    float box_f[3] = {0.f, 0.f, 0.f}, box_t[3] = {0.f, 0.f, 0.f};
+    if (m->has_box) {
+      const float bm_s = s->drv[2];
+      for (int j = 0; j < m->ns + 8; ++j) {
+        lp_add3(box_f, cb->BW[j]);
+        lp_add3(box_t, cb->BW[j] + 3);
+      }
+      lp_box_integrate(m, s->box, box_f, box_t, 1.0f / (m->box_mass * bm_s),
+                       1.0f / (m->box_inertia * bm_s));
+    }
+    for (int c = 0; c < 3; ++c) s->bf[c] = box_f[c];
+  }
 }
 
-LP_DEV void lp_store(float* dst, int rows, int n, int i, const float* src) {
-  for (int r = 0; r < rows; ++r) dst[(size_t)r * n + i] = src[r];
+// 4a. Own wrench and CRBA terms into shared memory (the contact buffers are
+// dead now).
+LP_DEV void lp_tree_store(const LaneModel* m, LpEnv* s, const LpLane& L, int lane) {
+  LpTreeBuf* tb = &s->u.t;
+  LP_EACH_BODY(k, i,
+    for (int c = 0; c < 6; ++c) { tb->W[i][c] = L.W[k][c]; tb->T[i][c] = L.T[k][c]; }
+    for (int c = 0; c < 3; ++c) tb->K[i][c] = L.K[k][c];)
 }
+
+// 4b. Subtree sums at level lev: each body adds its children's (final)
+// sums, children in descending index.
+LP_DEV void lp_tree_level(const LaneModel* m, LpEnv* s, int lev, int lane) {
+  LpTreeBuf* tb = &s->u.t;
+  LP_EACH_BODY(k, i,
+    if (m->depth[i] == lev + 1 && m->nchild[i] > 0) {
+      float W[6], T[6], K[3];
+      for (int c = 0; c < 6; ++c) { W[c] = tb->W[i][c]; T[c] = tb->T[i][c]; }
+      for (int c = 0; c < 3; ++c) K[c] = tb->K[i][c];
+      for (int h = 0; h < m->nchild[i]; ++h) {
+        int ch = m->child[i * LP_MAXCH + h];
+        for (int c = 0; c < 6; ++c) { W[c] += tb->W[ch][c]; T[c] += tb->T[ch][c]; }
+        lp_add3(K, tb->K[ch]);
+      }
+      for (int c = 0; c < 6; ++c) { tb->W[i][c] = W[c]; tb->T[i][c] = T[c]; }
+      for (int c = 0; c < 3; ++c) tb->K[i][c] = K[c];
+    })
+}
+
+// 5a. Q_j and row j of the mass matrix: f_j = Ic_j S_j (ftop = T a + K x v,
+// fbot = -(K x a) + m v), entry (i, j) = S_i . f_j for i in anc(j).
+LP_DEV float lp_mass_row_own(const LaneModel* m, LpEnv* s, int j) {
+  LpTreeBuf* tb = &s->u.t;
+  const float* a3 = s->S[j];
+  const float* v3 = s->S[j] + 3;
+  const float* bF = tb->W[j];
+  const float* bN = tb->W[j] + 3;
+  float Q = m->is_prism[j] ? lp_dot(v3, bF) : lp_dot(a3, bN) + lp_dot(v3, bF);
+  const float* t6 = tb->T[j];
+  float Ta[3] = {t6[0] * a3[0] + t6[1] * a3[1] + t6[2] * a3[2],
+                 t6[1] * a3[0] + t6[3] * a3[1] + t6[4] * a3[2],
+                 t6[2] * a3[0] + t6[4] * a3[1] + t6[5] * a3[2]};
+  float kv[3], ka[3], ftop[3], fbot[3];
+  lp_cross(tb->K[j], v3, kv);
+  lp_cross(tb->K[j], a3, ka);
+  float ms = m->subtree_mass[j];
+  for (int c = 0; c < 3; ++c) {
+    ftop[c] = Ta[c] + kv[c];
+    fbot[c] = v3[c] * ms - ka[c];
+  }
+  float* row = &tb->M[m->moff[j]];
+  for (int t = 0; t < m->depth[j]; ++t) {
+    const float* Si = s->S[m->anc[j * LP_MAXD + t]];
+    row[t] = lp_dot(Si, ftop) + lp_dot(Si + 3, fbot);
+  }
+  return Q;
+}
+
+LP_DEV void lp_mass_row(const LaneModel* m, LpEnv* s, LpLane& L, int lane) {
+  LP_EACH_BODY(k, i, L.Q[k] = lp_mass_row_own(m, s, i);)
+}
+
+// 5b. rhs_i = (M + arm) qd + h (kp (tgt - q) + Q), the row sum in the lane
+// kernel's order (own row, then descendants ascending), into w; then the
+// implicit-PD diagonal A = M + arm + h kd + h^2 kp.
+LP_DEV void lp_rhs_own(const LaneModel* m, LpEnv* s, int i, float Q) {
+  const int D = m->depth[i];
+  const float h = m->h;
+  LpTreeBuf* tb = &s->u.t;
+  float* row = &tb->M[m->moff[i]];
+  float r = 0.f;
+  for (int t = 0; t < D; ++t) r += row[t] * s->qd[m->anc[i * LP_MAXD + t]];
+  for (int e = m->desc_off[i]; e < m->desc_off[i + 1]; ++e) {
+    const int t = m->desc[e];
+    r += tb->M[t & 0xffff] * s->qd[t >> 16];
+  }
+  float kp_i = m->kp[i] * s->drv[0];
+  float acc = r + m->arm[i] * s->qd[i];
+  tb->w[i] = acc + h * (kp_i * (s->tgt[i] - s->q[i]) + Q);
+  row[D - 1] = row[D - 1] + m->arm[i] + (h * m->kd[i]) * s->drv[1] + (h * h) * kp_i;
+}
+
+LP_DEV void lp_rhs(const LaneModel* m, LpEnv* s, const LpLane& L, int lane) {
+  LP_EACH_BODY(k, i, lp_rhs_own(m, s, i, L.Q[k]);)
+}
+
+// 6. Step kk of the sparse LTL factorization, leaf to root (zero fill-in:
+// L's nonzeros are exactly the ancestor pairs), fused with step kk of
+// L^T w = rhs (descendants feed ancestors). Row kk and w_kk are final here,
+// scaled on the fly by their pivot's rsqrt (every lane forms the same one);
+// lanes run over the step's updates, one entry each: (anc[kk][ii], jj) for
+// jj <= ii < depth - 1, then w[anc[kk][ii]]. Each entry gets one update per
+// step, so its updates keep the lane kernel's order (kk descending).
+LP_DEV void lp_ltl_phase(const LaneModel* m, LpEnv* s, int lane, int kk) {
+  const int D = m->depth[kk];
+  LpTreeBuf* tb = &s->u.t;
+  const float* rk = &tb->M[m->moff[kk]];
+  const float d = LP_RSQRT(rk[D - 1]);
+  if (lane == 0) tb->inv_d[kk] = d;
+  const int n_tri = (D - 1) * D / 2;
+  for (int e0 = lane; e0 < n_tri; e0 += LP_W * LP_TRI_ROUNDS) {
+    int idx[LP_TRI_ROUNDS];
+    float upd[LP_TRI_ROUNDS];
+    LP_UNROLL for (int r = 0; r < LP_TRI_ROUNDS; ++r) {  // the loads before the stores
+      const int e = e0 + LP_W * r;
+      if (e < n_tri) {
+        const int t = m->ltl[kk * LP_TRI + e];
+        const float sii = rk[(t >> 16) & 255] * d;
+        idx[r] = t & 0xffff;
+        upd[r] = tb->M[idx[r]] - sii * (rk[t >> 24] * d);
+      }
+    }
+    LP_UNROLL for (int r = 0; r < LP_TRI_ROUNDS; ++r)
+      if (e0 + LP_W * r < n_tri) tb->M[idx[r]] = upd[r];
+  }
+  const float wk = tb->w[kk] * d;
+  for (int e = lane; e < D - 1; e += LP_W) tb->w[m->anc[kk * LP_MAXD + e]] -= (rk[e] * d) * wk;
+}
+
+// 7. L qd' = w at level lev (ancestors feed descendants), with the row and
+// w scaled by the owner's pivot; then the integration with joint-limit
+// projection of the body's DOF.
+LP_DEV void lp_forward_own(const LaneModel* m, LpEnv* s, int i, float d) {
+  const int D = m->depth[i];
+  LpTreeBuf* tb = &s->u.t;
+  const float* row = &tb->M[m->moff[i]];
+  float v = tb->w[i] * d;
+  for (int t = 0; t < D - 1; ++t) v -= (row[t] * d) * tb->qdn[m->anc[i * LP_MAXD + t]];
+  v = v * d;
+  tb->qdn[i] = v;
+  float qn = s->q[i] + m->h * v;
+  float lo = m->lower[i], up_ = m->upper[i];
+  bool low_hit = qn < lo, high_hit = qn > up_;
+  qn = fminf(fmaxf(qn, lo), up_);
+  if (low_hit && v < 0.f) v = 0.f;
+  if (high_hit && v > 0.f) v = 0.f;
+  s->q[i] = qn;
+  s->qd[i] = v;
+}
+
+LP_DEV void lp_forward_phase(const LaneModel* m, LpEnv* s, int lane, int lev) {
+  LP_EACH_BODY(k, i, if (m->depth[i] == lev + 1) lp_forward_own(m, s, i, s->u.t.inv_d[i]);)
+}
+
+// One integrator substep (pallas_step.py substep) of the env in s: q, qd and
+// box are updated; cf and bf receive this substep's body contact forces and
+// the box's net contact force.
+LP_DEV void lp_substep(const LaneModel* m, LpEnv* s, LpLane* Ls) {
+  for (int lev = 0; lev < m->n_levels; ++lev)
+    LP_WARP(lp_fk_phase(m, lev, lane, L, s->q, s->qd, s->spawn, s->kin, s->S);
+            if (lev == 0 && lane == LP_BOX_LANE && m->has_box) lp_rotmat(s->box + 3, s->Rb););
+  LP_WARP(lp_spheres_phase(m, s, lane););
+  LP_WARP(lp_forces_phase(m, s, lane););
+  LP_WARP(lp_body_phase(m, s, L, lane););
+  LP_WARP(lp_tree_store(m, s, L, lane););
+  for (int lev = m->n_levels - 2; lev >= 0; --lev) LP_WARP(lp_tree_level(m, s, lev, lane););
+  LP_WARP(lp_mass_row(m, s, L, lane););
+  LP_WARP(lp_rhs(m, s, L, lane););
+  for (int kk = m->nb - 1; kk >= 0; --kk) LP_WARP(lp_ltl_phase(m, s, lane, kk););
+  for (int lev = 0; lev < m->n_levels; ++lev) LP_WARP(lp_forward_phase(m, s, lane, lev););
+}
+
+// ---------------------------------------------------------------- block I/O
+// Rows x LP_ENVS columns of a rows x n array (envs contiguous) to or from the
+// block's env slots: env e's row r at base[e * stride + r] (stride in words).
+// Consecutive threads take consecutive envs of one row, so the global
+// accesses of a row are contiguous.
+template <typename T>
+LP_DEV void lp_stage_in(const T* g, int rows, int n, int e0, T* base, int stride, int tid,
+                        int nthr) {
+  for (int k = tid; k < rows * LP_ENVS; k += nthr) {
+    int r = k / LP_ENVS, e = k - r * LP_ENVS, i = e0 + e;
+    base[(size_t)e * stride + r] = i < n ? g[(size_t)r * n + i] : (T)0;
+  }
+}
+
+template <typename T>
+LP_DEV void lp_stage_out(T* g, int rows, int n, int e0, const T* base, int stride, int tid,
+                         int nthr) {
+  for (int k = tid; k < rows * LP_ENVS; k += nthr) {
+    int r = k / LP_ENVS, e = k - r * LP_ENVS, i = e0 + e;
+    if (i < n) g[(size_t)r * n + i] = base[(size_t)e * stride + r];
+  }
+}
+
+#ifdef __CUDACC__
+// Dynamic shared memory per block, raised above the 48 KB default where
+// needed, and the blocks resident per SM at that size.
+template <typename K>
+static int lp_prepare(K kernel, int smem, int* blocks_per_sm) {
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && blocks_per_sm)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                        LP_THREADS, smem);
+  return (int)err;
+}
+#endif

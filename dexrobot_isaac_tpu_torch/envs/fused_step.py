@@ -297,6 +297,10 @@ def fused_config_array(env, layout: FusedLayout, comp_names, rst_rows: int,
     r["obs_dim"] = env.num_obs + env.num_states
     r["rows_f"], r["rows_i"], r["rows_c"], r["rst_rows"] = (
         layout.rows_f, layout.rows_i, layout.rows_c, rst_rows)
+    in_cap, out_cap = shared_layout(lib)[3:]
+    if (layout.rows_f + layout.rows_i + pl.num_actions + rst_rows + 7 > in_cap
+            or layout.rows_c + r["obs_dim"] + 5 + len(comp_names) > out_cap):
+        raise FusedUnsupported("an env's rows exceed the kernel's staging in shared memory")
     of = lambda k: layout.offs_f[k][0]
     oi = lambda k: layout.offs_i[k][0]
     for k in ("q", "qd", "box_pos", "box_quat", "box_linvel", "box_angvel",
@@ -417,6 +421,15 @@ def fused_step_flops(cfg: np.ndarray, model: np.ndarray, n_envs: int, n_done: in
     per_env = physics + action + default_obs + task + termination + rewards + outputs + merge
     n_proj = int(cfg["has_proj"]) * n_done
     return n_envs * per_env + n_proj * (lane_step.min_site_z_flops(model, 5) + 3)
+
+
+def shared_layout(lib: ctypes.CDLL):
+    """K1's shared memory per env (bytes), envs per block, the design's
+    budget per env (bytes), and the words per env its staged input column
+    and its output rows may take (`fused_step_shared` in fused_step.cu)."""
+    vals = [ctypes.c_int() for _ in range(5)]
+    lib.fused_step_shared(*(ctypes.byref(v) for v in vals))
+    return tuple(v.value for v in vals)
 
 
 def _lib() -> ctypes.CDLL:

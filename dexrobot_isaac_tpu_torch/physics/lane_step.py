@@ -94,6 +94,11 @@ def lane_model_array(engine: HandPhysics, n_physics_steps: int, lib: ctypes.CDLL
             raise ValueError("tree deeper than the lane kernel's static depth")
         r["depth"][b] = len(chain)
         anc[b, :len(chain)] = sorted(chain)
+    max_m, lanes = ctypes.c_int(), ctypes.c_int()
+    lib.lane_caps(ctypes.byref(max_m), ctypes.byref(lanes))
+    if int(r["depth"][:nb].sum()) > max_m.value:
+        raise ValueError("mass matrix larger than the lane kernel's static size")
+    _tree_tables(r, parent, engine.sphere_body, engine.sc_i, engine.sc_j, lanes.value)
     for key, src in (("axis", "axis"), ("apos", "attach_pos"), ("aquat", "attach_quat"),
                      ("post", "post_quat"), ("mass", "mass"), ("com", "com"),
                      ("inertia", "inertia"), ("lower", "lower"), ("upper", "upper"),
@@ -111,6 +116,76 @@ def lane_model_array(engine: HandPhysics, n_physics_steps: int, lib: ctypes.CDLL
     r["site_pos"][:3 * nsite] = a["site_pos"].reshape(-1)
     r["site_quat"][:4 * nsite] = a["site_quat"].reshape(-1)
     return r
+
+
+def _tree_tables(r: np.ndarray, parent, sphere_body, sc_i, sc_j, n_lanes: int) -> None:
+    """The warp design's tables of the tree (lane_physics.cuh): levels,
+    mass-matrix row offsets, the bodies of each lane's slots, the LTL
+    steps' update targets, each body's descendants (ascending), children
+    (descending) and contacts (its spheres, then its pairs, in index
+    order)."""
+    nb, ns = len(parent), len(sphere_body)
+    depth = r["depth"][:nb]
+    r["n_levels"] = int(depth.max())
+    moff = np.concatenate([[0], np.cumsum(depth)[:-1]]).astype(int)
+    r["moff"][:nb] = moff
+    # lanes: each tree level in one slot where it fits (a level phase then
+    # runs one slot), levels in order; bodies in index order within a slot
+    n_slots = r["slot_body"].size // n_lanes
+    slots, k = [[] for _ in range(n_slots)], 0
+    for lev in range(1, int(depth.max()) + 1):
+        bodies = [b for b in range(nb) if depth[b] == lev]
+        while k < n_slots - 1 and len(slots[k]) + len(bodies) > n_lanes:
+            k += 1
+        room = n_lanes - len(slots[k])
+        slots[k] += bodies[:room]
+        for b in bodies[room:]:  # a level larger than a slot spills over
+            k2 = next(j for j in range(n_slots) if len(slots[j]) < n_lanes)
+            slots[k2].append(b)
+    r["slot_body"][:] = -1
+    for k, bodies in enumerate(slots):
+        r["slot_body"][k * n_lanes:k * n_lanes + len(bodies)] = sorted(bodies)
+    # LTL step kk: per (ii, jj <= ii < depth - 1) the M index of (anc[kk][ii], jj)
+    anc = r["anc"].reshape(r["parent"].size, -1)
+    n_tri = r["ltl"].size // r["parent"].size
+    ltl = r["ltl"].reshape(-1, n_tri)
+    for kk in range(nb):
+        e = 0
+        for ii in range(int(depth[kk]) - 1):
+            for jj in range(ii + 1):
+                ltl[kk, e] = (moff[anc[kk, ii]] + jj) | (ii << 16) | (jj << 24)
+                e += 1
+    maxch = r["child"].size // r["parent"].size
+    maxbc = r["bc"].size // r["parent"].size
+    child, bc = r["child"].reshape(-1, maxch), r["bc"].reshape(-1, maxbc)
+    n_desc = 0
+    for b in range(nb):
+        desc = [i for i in range(b + 1, nb) if b in _chain(parent, i)]
+        r["desc_off"][b] = n_desc
+        for i in desc:
+            r["desc"][n_desc] = (moff[i] + depth[b] - 1) | (i << 16)
+            n_desc += 1
+        r["desc_off"][b + 1] = n_desc
+        kids = [i for i in range(nb - 1, b, -1) if parent[i] == b]
+        cons = [j | (j << 8) for j in range(ns) if sphere_body[j] == b]
+        for p, (si, sj) in enumerate(zip(sc_i, sc_j)):
+            if sphere_body[si] == b:
+                cons.append((ns + p) | (int(si) << 8))
+            if sphere_body[sj] == b:
+                cons.append((ns + p) | (int(sj) << 8) | (1 << 16))
+        if len(kids) > maxch or len(cons) > maxbc:
+            raise ValueError("tree or contacts exceed the lane kernel's static sizes")
+        r["nchild"][b], r["nbc"][b] = len(kids), len(cons)
+        child[b, :len(kids)] = kids
+        bc[b, :len(cons)] = cons
+
+
+def _chain(parent, i):
+    out = []
+    while i >= 0:
+        out.append(i)
+        i = parent[i]
+    return out
 
 
 # f32 operations of lane_physics.cuh, counted from its code: each add, mul,
@@ -180,6 +255,15 @@ def model_buffer(engine: HandPhysics, n_physics_steps: int, lib: ctypes.CDLL,
         cache[n_physics_steps] = record_buffer(
             lane_model_array(engine, n_physics_steps, lib), engine.device)
     return cache[n_physics_steps]
+
+
+def shared_layout(lib: ctypes.CDLL):
+    """Shared memory per env of K2 and of min_site_z (bytes), envs per
+    block, and the design's budget per env (bytes) (`control_step_shared` in
+    control_step.cu)."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    lib.control_step_shared(*(ctypes.byref(v) for v in vals))
+    return tuple(v.value for v in vals)
 
 
 def _lib() -> ctypes.CDLL:

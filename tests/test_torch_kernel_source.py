@@ -8,7 +8,10 @@ never run these: on a CPU tensor they run the plain versions, on a CUDA
 tensor the nvcc-built kernels. This checks the kernel source here, where no
 card is: the struct layouts the wrappers fill, K2 and min_site_z against the
 plain engine, and K1 against the TPU-recorded golden trajectory (obs atol
-2e-4, reward/components atol 1e-3, done exact) and the plain fused step.
+2e-4, reward/components atol 1e-3, done exact) and the plain fused step; and the warp design itself: every warp phase gives the
+same bits whichever order its lanes run in (a phase that reads a value
+another lane writes in the same phase does not), and each env's slot of
+shared memory stays within the budget the design states.
 """
 
 import ctypes
@@ -45,6 +48,8 @@ def host_libs(tmp_path_factory):
     libs["control_step"].control_step_host.argtypes = [P] * 13 + [I]
     libs["control_step"].min_site_z_host.argtypes = [P, P, P, I, P, I]
     libs["fused_step"].fused_step_host.argtypes = [P] * 13 + [I]
+    for lib in libs.values():
+        lib.lane_order_host.argtypes = [I]
     return libs
 
 
@@ -118,6 +123,38 @@ def test_lane_model_buffer_layout(host_libs):
                                       for k in range(len(chain) - 1))
     assert np.isclose(r["subtree_mass"][0], te.np["mass"].sum())
     assert ls.control_step_flops(r) > 8 * ls.substep_flops(r) > 0
+
+
+def test_lane_model_tree_tables(host_libs):
+    """The warp design's tables: every body in exactly one lane slot, each
+    level's bodies in one slot; each LTL step's update targets are the
+    entries (anc[kk][ii], jj <= ii) of its proper ancestors' rows; each
+    body's descendant list and children list cover its subtree."""
+    te = HandPhysics(params=SimParams(dt=0.01, substeps=2, has_box=True), device="cpu")
+    r = ls.lane_model_array(te, 1, host_libs["control_step"])
+    nb, maxb = int(r["nb"]), r["parent"].size
+    parent, depth = r["parent"][:nb], r["depth"][:nb]
+    anc = r["anc"].reshape(maxb, -1)
+    moff = r["moff"][:nb]
+    slots = r["slot_body"].reshape(-1, r["slot_body"].size // 2)
+    assert sorted(int(b) for b in slots.ravel() if b >= 0) == list(range(nb))
+    assert int(r["n_levels"]) == int(depth.max()) == 10
+    for lev in range(1, 11):
+        assert len({k for k in range(2) for b in slots[k] if b >= 0 and depth[b] == lev}) == 1
+    ltl = r["ltl"].reshape(maxb, -1)
+    for kk in range(nb):
+        want = [(int(moff[anc[kk, ii]]) + jj, ii, jj) for ii in range(depth[kk] - 1)
+                for jj in range(ii + 1)]
+        got = [(int(t) & 0xFFFF, (int(t) >> 16) & 255, int(t) >> 24)
+               for t in ltl[kk, :len(want)]]
+        assert got == want
+    for b in range(nb):
+        desc = [i for i in range(nb) if i != b and b in anc[i, :depth[i]]]
+        lst = r["desc"][r["desc_off"][b]:r["desc_off"][b + 1]]
+        assert [int(t) >> 16 for t in lst] == desc
+        assert [int(t) & 0xFFFF for t in lst] == [int(moff[i]) + depth[b] - 1 for i in desc]
+        kids = r["child"].reshape(maxb, -1)[b, :r["nchild"][b]]
+        assert list(kids) == sorted((i for i in range(nb) if parent[i] == b), reverse=True)
 
 
 def test_control_step_source_matches_plain(host_libs, contact_state):
@@ -197,3 +234,79 @@ def test_fused_step_source_matches_plain(host_libs, contact_state):
     for h, p, atol in ((rf, rf2, 1e-3), (host[0], plain[0], 1e-2), (host[1], plain[1], 2e-4),
                        (host[2], plain[2], 1e-3), (host[4], plain[4], 1e-3)):
         torch.testing.assert_close(h, p, rtol=1e-4, atol=atol)
+
+
+@pytest.fixture(scope="module")
+def small_state():
+    """8 envs of the golden scenario (2 substeps) after 2 plain steps of
+    random actions, and the operands of one more step."""
+    env = make_env(load_config(list(gs.CONFIG)), seed=5, device="cpu")
+    fused = env.make_fused()
+    fs, _ = fused.reset()
+    g = torch.Generator().manual_seed(6)
+    n = env.num_envs
+    for _ in range(2):
+        fs, *_ = fused.step_fn(fs, torch.rand(n, env.num_actions, generator=g) * 2 - 1)
+    # half the envs at their last step: the reset merge and projection run
+    fs.rows_i[fused.layout.offs_i["episode_step_count"][0], ::2] = (
+        env.comps.term_cfg.max_episode_length - 2)
+    act_T = (torch.rand(n, env.num_actions, generator=g) * 2 - 1).t().contiguous()
+    reset, dr = env.draw_samples(n, fs.difficulty)
+    rst, drn = fused.operand_rows(reset, dr, n, "cpu")
+    return env, fused, fs, act_T, rst, drn
+
+
+def _in_lane_order(lib, reverse, fn):
+    lib.lane_order_host(int(reverse))
+    try:
+        return fn()
+    finally:
+        lib.lane_order_host(0)
+
+
+@pytest.mark.parametrize("kernel", ["fused_step", "control_step", "min_site_z"])
+def test_warp_phases_independent_of_lane_order(host_libs, small_state, kernel):
+    """The host build with its lanes in forward and in reverse order gives
+    bitwise-equal outputs: no phase reads what another lane writes in it."""
+    env, fused, fs, act_T, rst, drn = small_state
+    c, n = env.comps, env.num_envs
+    lib = host_libs["fused_step" if kernel == "fused_step" else "control_step"]
+
+    def run():
+        if kernel == "fused_step":
+            rf, ri = fs.rows_f.clone(), fs.rows_i.clone()
+            return [rf, ri, *_host_fused(lib, env, fused, rf, ri, act_T, rst, drn)]
+        st = fused.unpack(fs)
+        model = _buf(ls.lane_model_array(c.engine, c.physics_steps_per_control, lib))
+        spawn = env._spawn[:, None].expand(3, n).contiguous()
+        if kernel == "min_site_z":
+            out, q = torch.empty(n), st.physics.q.t().contiguous()
+            lib.min_site_z_host(model.data_ptr(), q.data_ptr(), spawn.data_ptr(),
+                                0b1111111111, out.data_ptr(), n)
+            return [out]
+        ph = st.physics
+        box = torch.cat([ph.box_pos, ph.box_quat, ph.box_linvel, ph.box_angvel], 1)
+        ins = [x.float().t().contiguous() for x in (ph.q, ph.qd, st.full_dof_targets)]
+        ins += [spawn, box.t().contiguous(), st.dr.rows().contiguous()]
+        outs = [torch.empty(r, n) for r in (26, 26, 13, 78, 3, 26 * 19 + 70)]
+        lib.control_step_host(model.data_ptr(), *(x.data_ptr() for x in ins),
+                              *(o.data_ptr() for o in outs), n)
+        return outs
+
+    fwd = _in_lane_order(lib, False, run)
+    rev = _in_lane_order(lib, True, run)
+    assert all(torch.isfinite(o.float()).all() for o in fwd)
+    for a, b in zip(fwd, rev):
+        assert torch.equal(a, b)
+
+
+def test_shared_slot_within_budget(host_libs):
+    """Each env's shared-memory slot, as the libraries report it, fits the
+    design's stated budget, and a block of envs fits an SM's 227 KB."""
+    cs, msz, envs, budget = ls.shared_layout(host_libs["control_step"])
+    fs_bytes, fs_envs, fs_budget, in_cap, out_cap = fsm.shared_layout(host_libs["fused_step"])
+    assert envs == fs_envs >= 1 and budget == fs_budget
+    assert max(cs, msz, fs_bytes) <= budget
+    # four blocks of envs (32 envs) and the card's 1 KB per block fit an SM's 228 KB
+    assert 4 * (envs * budget + 1024) <= 233472 and envs * 4 == 32
+    assert in_cap >= 231 and out_cap >= 104 + 158 + 5 + 39
