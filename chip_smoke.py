@@ -9,8 +9,8 @@ failing the run when it fails:
 1. build   compile the kernels of csrc/ with nvcc for sm_90a (one nvcc per
            source, started together); print the build seconds and the
            ptxas register/spill report, each kernel's shared bytes per block
-           and resident blocks (envs) per SM, and the card's name and power
-           limit.
+           and resident blocks (envs, or K3's systems) per SM, and the card's
+           name and power limit.
 2. golden  replay tests/golden/fused_blind_grasping.npz (recorded from the
            TPU kernel) through the CUDA fused kernel K1 with the JAX-sampled
            operands of dexrobot_isaac_tpu_torch/data/golden_operands.npz;
@@ -22,8 +22,10 @@ failing the run when it fails:
 4. K1      one fused step at 4096 envs against the plain fused step, and a
            second launch on the same inputs, bitwise equal to the first.
 5. K3      the SPD solve kernel on the 4096 systems (A, rhs) of one Coriolis
-           substep from phase 3's contact-rich state, against its plain
-           version (relative 1e-5); both also against a float64 solve.
+           substep from phase 3's contact-rich state, and on their first
+           4095 and first 1, against its plain version (relative 1e-5); both
+           also against a float64 solve; a second launch on the same inputs
+           bitwise equal to the first.
 6. coriolis one Coriolis control step at 4096 envs through make_control_step
            (the engine's ops with K3) against the plain Coriolis sequence:
            q, qd, box, contact force within 1e-3 relative.
@@ -40,12 +42,17 @@ failing the run when it fails:
            Metrics (KL, mean reward) and params finite; training env-steps/s
            with each iteration's rollout and update time.
 9. numbers env-steps/s of the 600-step rollout and each kernel's ms per
-           launch (CUDA events, after warm-up; K1 also at 8192 envs, the
-           README recipe's width) beside its plain version's ms,
-           its bound on the card (bytes or f32 operations counted for these
-           inputs) and, where one PyTorch call computes the same function,
-           that call's ms; the device's busy share over 20 fused steps under
-           torch.profiler.
+           launch, device time with its launches queued behind a sleeping
+           kernel so that the host's launch overhead stays out
+           (kernel_build.device_ms; K1 also at 8192 envs, the README
+           recipe's width; K3 warm, the phase-5 systems back to back in L2,
+           and cold, rotating over 12 copies of them, twice the L2), and
+           again with the host pacing the launches (CUDA events around the
+           calls, as the plain versions and library calls are timed),
+           beside its plain version's ms, its bound on the card (bytes or
+           f32 operations counted for these inputs) and, where one PyTorch
+           call computes the same function, that call's ms; the device's
+           busy share over 20 fused steps under torch.profiler.
 
 The line before the last is a JSON object of the kernels; the last line is
 the run's result: {"ok": true, "device": {...}}.
@@ -54,7 +61,6 @@ the run's result: {"ok": true, "device": {...}}.
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -108,20 +114,23 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def occupancy(kb, lane_step) -> dict:
-    """{kernel: (shared bytes per block, resident blocks per SM, envs per
-    block)} from the libraries' occupancy exports."""
+    """{kernel: (shared bytes per block, resident blocks per SM, envs or
+    systems per block)} from the libraries' occupancy exports."""
     import ctypes
 
-    v = [ctypes.c_int() for _ in range(6)]
-    cs, fs = kb.load("control_step"), kb.load("fused_step")
+    v = [ctypes.c_int() for _ in range(9)]
+    cs, fs, sp = kb.load("control_step"), kb.load("fused_step"), kb.load("spd_solve")
     check(cs.control_step_occupancy(*map(ctypes.byref, v[:4])) == 0,
           "control_step occupancy query failed")
-    check(fs.fused_step_occupancy(*map(ctypes.byref, v[4:])) == 0,
+    check(fs.fused_step_occupancy(*map(ctypes.byref, v[4:6])) == 0,
           "fused_step occupancy query failed")
+    check(sp.spd_solve_occupancy(*map(ctypes.byref, v[6:])) == 0,
+          "spd_solve occupancy query failed")
     envs = lane_step.shared_layout(cs)[2]
     return {"fused_step": (v[4].value, v[5].value, envs),
             "control_step": (v[0].value, v[1].value, envs),
-            "min_site_z": (v[2].value, v[3].value, envs)}
+            "min_site_z": (v[2].value, v[3].value, envs),
+            "spd_solve": (v[6].value, v[7].value, v[8].value)}
 
 
 def main() -> int:
@@ -142,9 +151,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          timeout=60).stdout.strip().splitlines()[0]
+    card = kb.card()
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     # ---------------------------------------------------------------- 1 build
@@ -152,13 +159,13 @@ def main() -> int:
     log(f"[build] nvcc seconds: {json.dumps({k: round(v, 1) for k, v in secs.items()})}")
     for name in kb.SOURCES:
         with open(kb.lib_path(name) + ".ptxas.txt") as f:
-            for line in f:
-                if any(s in line for s in ("registers", "spill", "stack frame")):
-                    log(f"[build] {name}: {line.strip()}")
+            for line in kb.ptxas_lines(f.read()):
+                log(f"[build] {name}: {line}")
     occ = occupancy(kb, lane_step)
-    log("[build] occupancy (a half-warp per env): " + "; ".join(
-        f"{k} {smem} B shared per block of {envs} envs, {blocks} blocks = {blocks * envs} "
-        f"envs resident per SM" for k, (smem, blocks, envs) in occ.items()))
+    unit = lambda k: "systems" if k == "spd_solve" else "envs"
+    log("[build] occupancy (a half-warp per env, a warp per K3 system): " + "; ".join(
+        f"{k} {smem} B shared per block of {per} {unit(k)}, {blocks} blocks = {blocks * per} "
+        f"{unit(k)} resident per SM" for k, (smem, blocks, per) in occ.items()))
     check(all(b >= 1 for _, b, _ in occ.values()), f"a kernel cannot be resident: {occ}")
 
     # ---------------------------------------------------------------- 2 golden
@@ -277,15 +284,23 @@ def main() -> int:
     eng_c._substep(ph, tgt, spawn, dr, capture)  # one Coriolis substep's systems
     A3, b3 = systems[0]
     x_k3 = linalg.spd_solve(A3, b3)
+    x_k3b = linalg.spd_solve(A3, b3)
     x_p3 = linalg.spd_solve_plain(A3, b3)
     x_64 = torch.linalg.solve(A3.double(), b3.double()[..., None])[..., 0]
     torch.cuda.synchronize()
     k3_err = rel_err(x_k3, x_p3)
     k3_abs = float((x_k3 - x_p3).abs().max())
+    k3_bits = bool(torch.equal(x_k3, x_k3b))
     log(f"[K3] spd_solve vs plain on {N_ENVS} systems (26x26) of one Coriolis substep: "
         f"relative err {k3_err:.2e} (tol 1e-5); against float64: kernel "
-        f"{rel_err(x_k3.double(), x_64):.2e}, plain {rel_err(x_p3.double(), x_64):.2e}")
-    check(k3_err <= 1e-5, "K3 disagrees with the plain SPD solve beyond 1e-5")
+        f"{rel_err(x_k3.double(), x_64):.2e}, plain {rel_err(x_p3.double(), x_64):.2e}; "
+        f"two launches bitwise equal: {k3_bits}")
+    check(k3_err <= 1e-5 and k3_bits, "K3 disagrees with the plain SPD solve beyond 1e-5, "
+          "or gave different bits on the same inputs")
+    for n3 in (N_ENVS - 1, 1):  # a ragged last block, and a lone system
+        e3 = rel_err(linalg.spd_solve(A3[:n3], b3[:n3]), linalg.spd_solve_plain(A3[:n3], b3[:n3]))
+        log(f"[K3] spd_solve vs plain on the first {n3} of them: relative err {e3:.2e} (tol 1e-5)")
+        check(e3 <= 1e-5, f"K3 disagrees with the plain SPD solve on {n3} systems")
 
     # ---------------------------------------------------------------- 6 coriolis
     cor_k = eng_c.make_control_step(c.physics_steps_per_control)
@@ -410,7 +425,8 @@ def main() -> int:
         ri.copy_(fs_k1.rows_i)
         return fn(rf, ri, act_T, rst, drn, spw)
 
-    k1_ms = cuda_ms(lambda: k1_on_phase4_inputs(fused.kernel), 20)
+    k1_ms = kb.device_ms(lambda: k1_on_phase4_inputs(fused.kernel), 20)
+    k1_paced_ms = cuda_ms(lambda: k1_on_phase4_inputs(fused.kernel), 20)
     # K1 at the README recipe's width (numEnvs=8192): the phase-4 columns twice
     w2 = lambda x: torch.cat([x, x], 1).contiguous()
     rf8, ri8, rf8_0, ri8_0 = w2(fs_k1.rows_f), w2(fs_k1.rows_i), w2(fs_k1.rows_f), w2(fs_k1.rows_i)
@@ -421,18 +437,33 @@ def main() -> int:
         ri8.copy_(ri8_0)
         return fused.kernel(rf8, ri8, *ins8)
 
-    k1_8192_ms = cuda_ms(k1_8192, 10)
+    k1_8192_ms = kb.device_ms(k1_8192, 10)
     log(f"[numbers] K1 at {N_ENVS} envs {k1_ms:.4f} ms/launch, at {2 * N_ENVS} envs (the "
-        f"README recipe's numEnvs) {k1_8192_ms:.4f} ms/launch ({card})")
+        f"README recipe's numEnvs) {k1_8192_ms:.4f} ms/launch, device time ({card})")
     k1_plain_ms = cuda_ms(lambda: k1_on_phase4_inputs(fused.kernel_plain), 1, 1)
     T = lambda x: x.t().contiguous()
     rows = (T(ph.q), T(ph.qd), T(tgt), T(spawn), T(box(ph)), dr.rows().contiguous())
-    k2_ms = cuda_ms(lambda: lane_step.control_step_rows(
-        c.engine, c.physics_steps_per_control, *rows), iters=20)
+    k2 = lambda: lane_step.control_step_rows(c.engine, c.physics_steps_per_control, *rows)
+    k2_ms, k2_paced_ms = kb.device_ms(k2, 20), cuda_ms(k2, 20)
     k2_plain_ms = cuda_ms(lambda: plain_cs(ph, tgt, spawn, dr), 1, 1)
-    msz_ms = cuda_ms(lambda: lane_step.min_site_z(c.engine, ph.q, env._spawn, tips), 50)
+    msz = lambda: lane_step.min_site_z(c.engine, ph.q, env._spawn, tips)
+    msz_ms, msz_paced_ms = kb.device_ms(msz, 50), cuda_ms(msz, 50)
     msz_plain_ms = cuda_ms(lambda: c.engine.min_site_z(ph.q, spawn, tips), 5)
-    k3_ms = cuda_ms(lambda: linalg.spd_solve(A3, b3), 50)
+    # K3 warm: the phase-5 systems back to back, in L2 as the Coriolis step
+    # leaves them; cold: rotating over copies whose lower triangles' sectors
+    # (2,016 bytes a system) hold twice the 50 MB L2
+    k3_ms = kb.device_ms(lambda: linalg.spd_solve(A3, b3), 200)
+    k3_paced_ms = cuda_ms(lambda: linalg.spd_solve(A3, b3), 50)
+    copies = [(A3.clone(), b3.clone()) for _ in range(12)]
+    turn = [0]
+
+    def k3_cold():
+        A_, b_ = copies[turn[0] % len(copies)]
+        turn[0] += 1
+        return linalg.spd_solve(A_, b_)
+
+    k3_cold_ms = kb.device_ms(k3_cold, 10 * len(copies))
+    del copies
     k3_plain_ms = cuda_ms(lambda: linalg.spd_solve_plain(A3, b3), 20)
     k3_lib_ms = cuda_ms(lambda: torch.linalg.solve(A3, b3[..., None]), 20)
     log(f"[numbers] spd_solve library yardsticks: torch.linalg.solve {k3_lib_ms:.4f} ms, "
@@ -470,31 +501,38 @@ def main() -> int:
     b_k1 = nbytes(rf, ri, act_T, rst, drn, spw, *ko, rf, ri)
     b_k2 = 4 * N_ENVS * (26 * 3 + 3 + 13 + 4 + 26 * 2 + 13 + 78 + 3 + 26 * 19 + 10 * 7)
     b_msz = 4 * N_ENVS * (26 + 3 + 1)
-    # K3 must read A's lower triangle (351 floats) and b, and write x
-    b_k3 = 4 * N_ENVS * (26 * 27 // 2 + 26 + 26)
+    b_k3 = linalg.spd_solve_bytes(26) * N_ENVS
     f_k3 = linalg.spd_solve_flops(26) * N_ENVS
     launches["spd_solve"] = co_launches["spd_solve"]
+    k3_bound = bound(b_k3, f_k3)[0]
+    log(f"[numbers] spd_solve at {N_ENVS} systems: warm {k3_ms:.5f} ms/launch (queued; paced by "
+        f"the host's launches {k3_paced_ms:.5f}), cold {k3_cold_ms:.5f} ms/launch = "
+        f"{k3_cold_ms / k3_bound:.2f}x its byte bound of {k3_bound:.5f} ms ({card})")
     kernels = []
-    for name, src, rep, ms, pms, err, (bms, by), lib_ms in (
+    timing = ("ms: device time of launches queued behind a sleeping kernel "
+              "(kernel_build.device_ms); paced_ms, plain_ms, library_ms: CUDA events around "
+              "calls paced by the host")
+    for name, src, rep, ms, paced, pms, err, (bms, by), lib_ms in (
         ("fused_step", "dexrobot_isaac_tpu_torch/csrc/fused_step.cu",
-         "dexrobot_isaac_tpu/envs/fused_step.py:1080", k1_ms, k1_plain_ms, k1["obs"],
-         bound(b_k1, f_k1), None),
+         "dexrobot_isaac_tpu/envs/fused_step.py:1080", k1_ms, k1_paced_ms, k1_plain_ms,
+         k1["obs"], bound(b_k1, f_k1), None),
         ("control_step", "dexrobot_isaac_tpu_torch/csrc/control_step.cu",
-         "dexrobot_isaac_tpu/physics/pallas_step.py:1141", k2_ms, k2_plain_ms, k2_abs,
-         bound(b_k2, f_k2), None),
+         "dexrobot_isaac_tpu/physics/pallas_step.py:1141", k2_ms, k2_paced_ms, k2_plain_ms,
+         k2_abs, bound(b_k2, f_k2), None),
         ("min_site_z", "dexrobot_isaac_tpu_torch/csrc/control_step.cu",
-         "dexrobot_isaac_tpu/physics/pallas_step.py:986", msz_ms, msz_plain_ms, mz_err,
-         bound(b_msz, f_msz), None),
+         "dexrobot_isaac_tpu/physics/pallas_step.py:986", msz_ms, msz_paced_ms, msz_plain_ms,
+         mz_err, bound(b_msz, f_msz), None),
         ("spd_solve", "dexrobot_isaac_tpu_torch/csrc/spd_solve.cu",
-         "dexrobot_isaac_tpu/ops/linalg.py:113", k3_ms, k3_plain_ms, k3_abs,
+         "dexrobot_isaac_tpu/ops/linalg.py:113", k3_ms, k3_paced_ms, k3_plain_ms, k3_abs,
          bound(b_k3, f_k3), k3_lib_ms),
     ):
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": launches[name], "max_abs_err": err, "ms": ms,
-                        "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
-        log(f"[numbers] {name}: {ms:.4f} ms/launch, plain {pms:.4f} ms, bound {bms:.5f} ms "
-            f"({by}), library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
-            f"launches {launches[name]}")
+                        "paced_ms": paced, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                        "library_ms": lib_ms, "timing": timing})
+        log(f"[numbers] {name}: {ms:.5f} ms/launch (paced by the host {paced:.5f}), plain "
+            f"{pms:.4f} ms, bound {bms:.5f} ms ({by}), library "
+            f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, launches {launches[name]}")
     log(f"[numbers] env-steps/s {sps:,.0f}, training env-steps/s {train_sps:,.0f} ({card}); "
         f"total {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}))

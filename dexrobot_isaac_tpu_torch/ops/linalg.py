@@ -6,13 +6,14 @@ the Coriolis control step (`HandPhysics.make_control_step` with
 `SimParams.coriolis`) runs it through `spd_solve`:
 
 - `spd_solve(A, b)`: on a CUDA tensor it launches `csrc/spd_solve.cu` (the
-  TPU kernel's rsqrt Cholesky and both substitutions, one warp per system)
-  or raises; on a CPU tensor it runs the plain version.
+  TPU kernel's rsqrt Cholesky with the forward substitution folded in, and a
+  back substitution across the lanes; one warp per system, rows in
+  registers) or raises; on a CPU tensor it runs the plain version.
 - `spd_solve_plain(A, b)`: `torch.linalg.cholesky` + `torch.cholesky_solve`,
   the plain engine's solve. The tests and the card's comparisons call it.
 
-A: (N, n, n) float32, b: (N, n) float32 -> x: (N, n). The kernel reads only
-A's lower triangle.
+A: (N, n, n) float32, 16-byte aligned, b: (N, n) float32 -> x: (N, n). The
+kernel reads only A's lower triangle.
 """
 
 from __future__ import annotations
@@ -26,11 +27,19 @@ from dexrobot_isaac_tpu_torch.utils import kernel_build as kb
 
 def spd_solve_flops(n: int) -> int:
     """f32 operations of one system in csrc/spd_solve.cu (an add, mul or
-    rsqrt counts one): the factor's row sums (2 j per row i >= j of column
-    j), the pivots' rsqrt and the column scaling, then both substitutions
-    (2 per off-diagonal entry, one scaling per row each)."""
-    factor = sum(2 * j * (n - j) + 1 + (n - j) for j in range(n))
+    rsqrt counts one): the factor's updates (2 per entry (i, c), j < c <= i,
+    at step j: as many as the left-looking row sums, 2 j per row i >= j of
+    column j), the pivots' rsqrt and the scaling of the column below each
+    pivot, then both substitutions (2 per off-diagonal entry, one scaling
+    per row each)."""
+    factor = sum(2 * j * (n - j) + 1 + (n - 1 - j) for j in range(n))
     return factor + 2 * (n * (n - 1) + n)
+
+
+def spd_solve_bytes(n: int) -> int:
+    """Bytes one system in csrc/spd_solve.cu must move: A's lower triangle
+    and b read once, x written once."""
+    return 4 * (n * (n + 1) // 2 + 2 * n)
 
 
 def spd_solve_plain(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -64,6 +73,8 @@ def spd_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
     if N < 1:
         raise ValueError("spd_solve needs at least one system")
+    if A.data_ptr() % 16:
+        raise ValueError("spd_solve reads A in 16-byte segments: A must be 16-byte aligned")
     x = torch.empty_like(b)
     kb.check(lib.spd_solve_launch(A.data_ptr(), b.data_ptr(), x.data_ptr(), N, n,
                                   kb.stream_ptr(A.device)), "spd_solve")

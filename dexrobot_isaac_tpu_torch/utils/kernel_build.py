@@ -4,8 +4,10 @@ Each `csrc/<name>.cu` is compiled on first use into
 `dexrobot_isaac_tpu_torch/_build/<name>-<hash>.so` (the hash covers the
 sources and flags, so an edited source rebuilds) with a plain C interface:
 pointers and the stream go in as `c_void_p`, and every launcher returns
-`cudaGetLastError()`. `build_all` starts one nvcc per source at once.
-Nothing here runs at import time: the CPU tests import every module.
+`cudaGetLastError()`. `nvcc` starts one nvcc per source at once (the
+probes of `utils/` build their variants with it too); `device_ms` times a
+kernel's launches on the card; `card` names the card. Nothing here runs at
+import time: the CPU tests import every module.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable
+from typing import Dict, Hashable, Iterable, List, Tuple
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
@@ -55,29 +57,44 @@ def lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 
 
-def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
-    """Compile every source that is not built yet, one nvcc each, all
-    started together. Returns {name: seconds} of the builds that ran; the
-    ptxas report (registers, spills, stack) goes to `<lib>.ptxas.txt`."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+def nvcc(jobs: Dict[Hashable, Tuple[str, str]]) -> Dict[Hashable, Tuple[float, str]]:
+    """Compile each job {key: (source, library)} with NVCC_FLAGS, one nvcc
+    each, all started together. Returns {key: (seconds, nvcc's output)};
+    raises, once every nvcc has ended, if one failed."""
     procs = {}
-    for name in names:
-        out = lib_path(name)
-        if os.path.exists(out):
-            continue
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", out + ".tmp", os.path.join(CSRC, name + ".cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), out, time.perf_counter())
-    secs = {}
-    for name, (proc, out, t0) in procs.items():
+    for key, (src, out) in jobs.items():
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", out, src]
+        procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True), time.perf_counter())
+    res, failed = {}, []
+    for key, (proc, t0) in procs.items():
         log, _ = proc.communicate()
-        secs[name] = time.perf_counter() - t0
-        with open(out + ".ptxas.txt", "w") as f:
-            f.write(log)
+        res[key] = (time.perf_counter() - t0, log)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
-        os.replace(out + ".tmp", out)
-    return secs
+            failed.append(f"nvcc failed for {key} ({jobs[key][0]}):\n{log}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return res
+
+
+def ptxas_lines(log: str) -> List[str]:
+    """ptxas's register, spill and stack lines in an nvcc output."""
+    return [ln.strip() for ln in log.splitlines()
+            if any(s in ln for s in ("registers", "spill", "stack frame"))]
+
+
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
+    """Compile every source that is not built yet (`nvcc`). Returns {name:
+    seconds} of the builds that ran; the ptxas report (registers, spills,
+    stack) goes to `<lib>.ptxas.txt`."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    todo = [n for n in names if not os.path.exists(lib_path(n))]
+    res = nvcc({n: (os.path.join(CSRC, n + ".cu"), lib_path(n) + ".tmp") for n in todo})
+    for name, (_, log) in res.items():
+        with open(lib_path(name) + ".ptxas.txt", "w") as f:
+            f.write(log)
+        os.replace(lib_path(name) + ".tmp", lib_path(name))
+    return {name: secs for name, (secs, _) in res.items()}
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -97,3 +114,36 @@ def stream_ptr(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device milliseconds per call of `fn`, whose launches go on the current
+    stream: one call to warm up, then `iters` calls queued behind a kernel
+    that keeps the card busy (`torch.cuda._sleep`), so that they run back to
+    back on the card whatever the host's launch overhead. CUDA events time
+    them; the sleep grows until the host has enqueued every call before the
+    card reaches the first."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 24  # ~10 ms at the H100's clock
+    for _ in range(5):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        t0.record()
+        for _ in range(iters):
+            fn()
+        t1.record()
+        queued = not t0.query()
+        torch.cuda.synchronize()
+        if queued:
+            return t0.elapsed_time(t1) / iters
+        cycles *= 4
+    raise RuntimeError("device_ms: the host did not enqueue the calls while the card slept")
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]

@@ -4,8 +4,9 @@
 
 Needs one CUDA card and nvcc. Builds, next to the port's own build, variants
 of csrc/ with one source edit each (nothing in csrc/ changes), one nvcc per
-variant, eight at a time, then times each at 4096 BlindGrasping envs from a
-contact-rich state (three fused steps of random actions):
+variant, all at once (`kernel_build.nvcc`), then times each at 4096
+BlindGrasping envs from a contact-rich state (three fused steps of random
+actions):
 
 - `full`: the sources as they are (K1 and K2), the reference;
 - `only_<phase>`: K2 with its substep cut to that one phase (of
@@ -15,9 +16,10 @@ contact-rich state (three fused steps of random actions):
 - `model_shared`: K1 and K2 with the LaneModel copied into each block's
   shared memory first, against `full`'s read-only global path.
 
-Prints ptxas's registers and spills and, per variant, ms per launch (CUDA
-events over 10 launches after one), resident blocks per SM, and whether the
-outputs equal `full`'s bit for bit (for `model_shared`).
+Prints ptxas's registers and spills and, per variant, ms per launch (device
+time of 10 launches after one, `kernel_build.device_ms`), resident blocks
+per SM, and whether the outputs equal `full`'s bit for bit (for
+`model_shared`).
 """
 
 from __future__ import annotations
@@ -26,9 +28,7 @@ import ctypes
 import os
 import re
 import shutil
-import subprocess
 import sys
-import time
 
 PHASES = ["fk", "spheres", "forces", "body", "tree_store", "tree_level", "mass_row", "rhs",
           "ltl", "forward"]
@@ -85,7 +85,7 @@ def main() -> int:
     root = os.path.join(kb.BUILD_DIR, "probe")
     shutil.rmtree(root, ignore_errors=True)
     src, variants = _variants(kb.CSRC)
-    jobs = []
+    jobs = {}
     for name, edits in variants.items():
         d = os.path.join(root, name)
         os.makedirs(d)
@@ -94,34 +94,13 @@ def main() -> int:
                 fh.write(edits.get(f, text))
         for lib in ("control_step", "fused_step"):
             if name in ("full", "model_shared") or lib == "control_step":
-                jobs.append((name, lib, d))
-    t0, running, libs = time.perf_counter(), [], {}
-
-    def reap(block):
-        for job in list(running):
-            p, key, so = job
-            if block or p.poll() is not None:
-                log, _ = p.communicate()
-                running.remove(job)
-                info = [ln.strip() for ln in log.splitlines()
-                        if p.returncode or "registers" in ln or "spill" in ln]
-                print(f"[build] {key[0]} {key[1]}: rc {p.returncode} "
-                      f"{time.perf_counter() - t0:.0f} s; " + " | ".join(info[-2:]), flush=True)
-                if p.returncode == 0:
-                    libs[key] = so
-
-    for name, lib, d in jobs:
-        while len(running) >= 8:
-            reap(False)
-            time.sleep(0.2)
-        so = os.path.join(d, lib + ".so")
-        cmd = [kb._nvcc(), *kb.NVCC_FLAGS, "-o", so, os.path.join(d, lib + ".cu")]
-        running.append((subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                         text=True), (name, lib), so))
-    while running:
-        reap(True)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip()
+                jobs[(name, lib)] = (os.path.join(d, lib + ".cu"), os.path.join(d, lib + ".so"))
+    libs = {}
+    for key, (secs, log) in kb.nvcc(jobs).items():
+        print(f"[build] {key[0]} {key[1]}: {secs:.0f} s; " + " | ".join(kb.ptxas_lines(log)[-2:]),
+              flush=True)
+        libs[key] = jobs[key][1]
+    card = kb.card()
     print(f"card: {card}", flush=True)
 
     dev = torch.device("cuda")
@@ -153,17 +132,6 @@ def main() -> int:
     def k2():
         return lane_step.control_step_rows(c.engine, c.physics_steps_per_control, *rows)
 
-    def cuda_ms(fn, iters=10):
-        fn()
-        torch.cuda.synchronize()
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(iters):
-            fn()
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / iters
-
     ref = {}
     for (name, lib), so in sorted(libs.items(), key=lambda kv: (kv[0][0] != "full", kv[0])):
         cdll = ctypes.CDLL(so)
@@ -176,7 +144,7 @@ def main() -> int:
         same = None
         if name in ("full", "model_shared"):
             same = all(torch.equal(a, b) for a, b in zip(ref.setdefault(lib, out), out))
-        ms = cuda_ms(fn)
+        ms = kb.device_ms(fn, 10)
         v = [ctypes.c_int() for _ in range(4)]
         if lib == "fused_step":
             cdll.fused_step_occupancy(ctypes.byref(v[0]), ctypes.byref(v[1]))

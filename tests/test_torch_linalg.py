@@ -6,8 +6,13 @@
   float64 solve;
 - `spd_solve` on CPU tensors (the wrapper's plain route) at B = 8 and at
   B = 300 (not a multiple of the TPU's 256-env blocks);
-- a g++ host build of `csrc/spd_solve.cu` (the kernel's per-lane steps with
-  a loop over the lanes) against the plain version.
+- a g++ host build of `csrc/spd_solve.cu` (the kernel's warp phases, each a
+  loop over the lanes) against the plain version, the TPU kernel's
+  arithmetic and a float64 solve, on every system set: the kernel's back
+  substitution sums in the other order (k descending), so it matches the
+  TPU kernel to the tolerance, not to the bit. B = 1, 5 and 300 leave the
+  last block of 8 systems ragged. With its lanes run forward and in reverse
+  (`lane_order_host`) the host build gives the same bits.
 
 Systems: the engine's own (one substep's `A`, `rhs` of a contact-rich
 state) and seeded random SPD matrices. Tolerance 1e-5 relative (the max
@@ -60,8 +65,8 @@ def systems():
     T = torch.as_tensor
     te._op_control_step(1, capture)(tt.PhysicsState(**{k: T(v) for k, v in state.items()}),
                                     T(targets), T(spawn), tt.DRSample(*map(T, dr)))
-    return {"engine": seen[0], "random8": _random_systems(8, 0),
-            "random300": _random_systems(300, 1)}
+    return {"engine": seen[0], "random1": _random_systems(1, 2), "random5": _random_systems(5, 3),
+            "random8": _random_systems(8, 0), "random300": _random_systems(300, 1)}
 
 
 def _tpu_kernel(a, b):
@@ -76,8 +81,7 @@ def _tpu_kernel(a, b):
 def test_plain_matches_tpu_kernel_arithmetic(systems, name):
     a, b = systems[name]
     want = _tpu_kernel(a, b)
-    x64 = np.linalg.solve(a.astype(np.float64), b.astype(np.float64)[..., None])[..., 0]
-    assert _rel(want, x64) <= REL_TOL  # the TPU arithmetic itself, against float64
+    assert _rel(want, _f64(a, b)) <= REL_TOL  # the TPU arithmetic itself, against float64
     got = linalg.spd_solve_plain(torch.as_tensor(a), torch.as_tensor(b)).numpy()
     assert _rel(got, want) <= REL_TOL
 
@@ -87,8 +91,7 @@ def test_wrapper_runs_plain_on_cpu(systems, name):
     a, b = systems[name]
     got = linalg.spd_solve(torch.as_tensor(a), torch.as_tensor(b))
     assert torch.equal(got, linalg.spd_solve_plain(torch.as_tensor(a), torch.as_tensor(b)))
-    x64 = np.linalg.solve(a.astype(np.float64), b.astype(np.float64)[..., None])[..., 0]
-    assert _rel(got.numpy(), x64) <= REL_TOL
+    assert _rel(got.numpy(), _f64(a, b)) <= REL_TOL
 
 
 def test_wrapper_refuses_other_devices():
@@ -106,17 +109,23 @@ def host_lib(tmp_path_factory):
                     os.path.join(CSRC, "spd_solve.cu")], check=True, timeout=300)
     lib = ctypes.CDLL(so)
     lib.spd_solve_host.argtypes = [P, P, P, ctypes.c_int, ctypes.c_int]
+    lib.lane_order_host.argtypes = [ctypes.c_int]
     return lib
 
 
-@pytest.mark.parametrize("name", ["engine", "random8", "random300"])
+def _f64(a, b):
+    return np.linalg.solve(a.astype(np.float64), b.astype(np.float64)[..., None])[..., 0]
+
+
+@pytest.mark.parametrize("name", ["engine", "random1", "random5", "random8", "random300"])
 def test_kernel_source_matches_plain(host_lib, systems, name):
     a, b = (torch.as_tensor(v) for v in systems[name])
-    x = torch.empty_like(b)
+    x = torch.full_like(b, float("nan"))
     assert host_lib.spd_solve_dim() == 26
     assert host_lib.spd_solve_host(a.data_ptr(), b.data_ptr(), x.data_ptr(), a.shape[0], 26) == 0
     assert _rel(x.numpy(), linalg.spd_solve_plain(a, b).numpy()) <= REL_TOL
     assert _rel(x.numpy(), _tpu_kernel(a.numpy(), b.numpy())) <= REL_TOL
+    assert _rel(x.numpy(), _f64(a.numpy(), b.numpy())) <= REL_TOL
 
 
 def test_kernel_source_reads_only_the_lower_triangle(host_lib, systems):
@@ -129,3 +138,22 @@ def test_kernel_source_reads_only_the_lower_triangle(host_lib, systems):
     host_lib.spd_solve_host(a.data_ptr(), b.data_ptr(), x.data_ptr(), 8, 26)
     host_lib.spd_solve_host(junk.data_ptr(), b.data_ptr(), y.data_ptr(), 8, 26)
     assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("name", ["engine", "random1", "random5", "random8", "random300"])
+def test_kernel_source_independent_of_lane_order(host_lib, systems, name):
+    """The host build with its lanes in forward and in reverse order gives
+    the same bits: no warp phase reads what another lane writes in it."""
+    a, b = (torch.as_tensor(v) for v in systems[name])
+    out = []
+    for reverse in (0, 1):
+        x = torch.full_like(b, float("nan"))
+        host_lib.lane_order_host(reverse)
+        try:
+            assert host_lib.spd_solve_host(a.data_ptr(), b.data_ptr(), x.data_ptr(),
+                                           a.shape[0], 26) == 0
+        finally:
+            host_lib.lane_order_host(0)
+        out.append(x)
+    assert torch.isfinite(out[0]).all()
+    assert torch.equal(out[0], out[1])
