@@ -6,11 +6,13 @@ Needs one CUDA card and the CUDA toolkit (nvcc); exits non-zero, printing no
 result, without them or outside a checkout of this repository. Phases, each
 failing the run when it fails:
 
-1. build   compile the kernels of csrc/ with nvcc for sm_90a (one nvcc per
-           source, started together); print the build seconds and the
-           ptxas register/spill report, each kernel's shared bytes per block
-           and resident blocks (envs, or K3's systems) per SM, and the card's
-           name and power limit.
+1. build   compile every kernel build of csrc/ (kernel_build.BUILDS: K1 for
+           BlindGrasping, BaseTask and BoxStacking, K2 for one box and for
+           two, K3) with nvcc for sm_90a (one nvcc per build, started
+           together); print the build seconds and the ptxas register/spill
+           report, each kernel's shared bytes per block and resident blocks
+           (envs, or K3's systems) per SM (the BlindGrasping builds must keep
+           32 envs per SM), and the card's name and power limit.
 2. golden  replay tests/golden/fused_blind_grasping.npz (recorded from the
            TPU kernel) through the CUDA fused kernel K1 with the JAX-sampled
            operands of dexrobot_isaac_tpu_torch/data/golden_operands.npz;
@@ -21,6 +23,19 @@ failing the run when it fails:
            min_site_z against the plain FK.
 4. K1      one fused step at 4096 envs against the plain fused step, and a
            second launch on the same inputs, bitwise equal to the first.
+   box2    K2's two-box build against the plain engine at 4096 envs of
+           BoxStacking, a quarter of them with the pick cube resting on the
+           platform and a quarter with it dropped onto it (cube-cube,
+           platform-ground and hand contacts active; the envs with cube-cube
+           contact are counted and must be more than 0): q, qd, both boxes'
+           rows and the 6 box-force rows within 1e-3 relative; two launches
+           bitwise equal.
+   stacking K1's BoxStacking build against the plain fused step at 4096 envs
+           of that state, half of them resetting: no mask mismatch, obs
+           atol 2e-4, reward and components atol 1e-3; two launches bitwise
+           equal.
+   base    K1's BaseTask build (position_delta actions, no task step) the
+           same way.
 5. K3      the SPD solve kernel on the 4096 systems (A, rhs) of one Coriolis
            substep from phase 3's contact-rich state, and on their first
            4095 and first 1, against its plain version (relative 1e-5); both
@@ -32,7 +47,10 @@ failing the run when it fails:
 7. main    the port's main path, counted: make_env -> reset -> 600 fused
            steps of uniform random actions in [-1, 1] (episodeLength 500, so
            auto-resets fire), then 10 unfused (evaluation-path) steps.
-           Launch counters are zeroed just before and read just after.
+           Launch counters are zeroed just before and read just after. The
+           same for BoxStacking (600 fused steps through K1's BoxStacking
+           build, 10 unfused through K2's two-box build) and for BaseTask
+           (100 fused steps), each path counted on its own.
 8. train   the CLI trainer (dexrobot_isaac_tpu_torch/train.py run_train)
            in-process on BlindGrasping at 4096 envs, default config (horizon
            16): 3 iterations on the fused step (K1 launches = 3 x 16), then 1
@@ -40,11 +58,15 @@ failing the run when it fails:
            evaluation (test=true) from the checkpoint just written (K2
            launches > 0); counters zeroed before and read after each run.
            Metrics (KL, mean reward) and params finite; training env-steps/s
-           with each iteration's rollout and update time.
+           with each iteration's rollout and update time. Then BoxStacking:
+           2 iterations (one dispatch chunk of 2) with fused=auto, which
+           must take K1's BoxStacking build, and an evaluation from its
+           checkpoint (the unfused step: K2's two-box build).
 9. numbers env-steps/s of the 600-step rollout and each kernel's ms per
            launch, device time with its launches queued behind a sleeping
            kernel so that the host's launch overhead stays out
-           (kernel_build.device_ms; K1 also at 8192 envs, the README
+           (kernel_build.device_ms; every build on its phase's inputs; K1
+           also at 8192 envs, the README
            recipe's width; K3 warm, the phase-5 systems back to back in L2,
            and cold, rotating over 12 copies of them, twice the L2), and
            again with the host pacing the launches (CUDA events around the
@@ -68,6 +90,7 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+kb = None  # dexrobot_isaac_tpu_torch.utils.kernel_build, imported by main()
 GOLDEN = os.path.join(ROOT, "tests", "golden", "fused_blind_grasping.npz")
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_PER_S = 67e12       # f32 outside the tensor cores, H100 SXM data sheet
@@ -114,23 +137,150 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def occupancy(kb, lane_step) -> dict:
-    """{kernel: (shared bytes per block, resident blocks per SM, envs or
-    systems per block)} from the libraries' occupancy exports."""
+    """{kernel build: (shared bytes per block, resident blocks per SM, envs
+    or systems per block)} from the libraries' occupancy exports."""
     import ctypes
 
-    v = [ctypes.c_int() for _ in range(9)]
-    cs, fs, sp = kb.load("control_step"), kb.load("fused_step"), kb.load("spd_solve")
-    check(cs.control_step_occupancy(*map(ctypes.byref, v[:4])) == 0,
-          "control_step occupancy query failed")
-    check(fs.fused_step_occupancy(*map(ctypes.byref, v[4:6])) == 0,
-          "fused_step occupancy query failed")
-    check(sp.spd_solve_occupancy(*map(ctypes.byref, v[6:])) == 0,
-          "spd_solve occupancy query failed")
-    envs = lane_step.shared_layout(cs)[2]
-    return {"fused_step": (v[4].value, v[5].value, envs),
-            "control_step": (v[0].value, v[1].value, envs),
-            "min_site_z": (v[2].value, v[3].value, envs),
-            "spd_solve": (v[6].value, v[7].value, v[8].value)}
+    out = {}
+    envs = lane_step.shared_layout(kb.load("control_step"))[2]
+    for name in kb.BUILDS:
+        lib, v = kb.load(name), [ctypes.c_int() for _ in range(4)]
+        if kb.BUILDS[name][0] == "control_step":
+            check(lib.control_step_occupancy(*map(ctypes.byref, v)) == 0,
+                  f"{name} occupancy query failed")
+            out[name] = (v[0].value, v[1].value, envs)
+            if name == "control_step":
+                out["min_site_z"] = (v[2].value, v[3].value, envs)
+        elif kb.BUILDS[name][0] == "fused_step":
+            check(lib.fused_step_occupancy(*map(ctypes.byref, v[:2])) == 0,
+                  f"{name} occupancy query failed")
+            out[name] = (v[0].value, v[1].value, envs)
+        else:
+            check(lib.spd_solve_occupancy(*map(ctypes.byref, v[:3])) == 0,
+                  f"{name} occupancy query failed")
+            out[name] = (v[0].value, v[1].value, v[2].value)
+    return out
+
+
+def stacked_scene(env, state, gen):
+    """The BoxStacking state of phase [box2]: after plain steps of random
+    actions, a quarter of the envs get the pick cube resting on the
+    platform (offset, yawed, pushed; slightly interpenetrating) and a quarter
+    get it dropped onto it, so that cube-cube, platform-ground and hand
+    contacts are all active (tests/test_pallas_step.py,
+    tests/test_physics_multibody.py)."""
+    ph = dataclasses.replace(state.physics)
+    n, dev = ph.q.shape[0], ph.q.device
+    t = env.comps.task
+    top = t.plat_size + t.box_size / 2.0
+    rest, drop = torch.arange(n, device=dev) % 4 == 0, torch.arange(n, device=dev) % 4 == 1
+    off = (torch.rand(n, 2, generator=gen, device=dev) * 2 - 1) * 0.01
+    pos = torch.cat([ph.box2_pos[:, :2] + off, ph.box2_pos[:, 2:3] * 0 + top - 0.0015], 1)
+    yaw = (torch.rand(n, generator=gen, device=dev) * 2 - 1) * 0.3
+    z = torch.zeros_like(yaw)
+    quat = torch.stack([z, z, torch.sin(yaw / 2), torch.cos(yaw / 2)], 1)
+    push = torch.tensor([0.05, -0.02, 0.0], device=dev).expand(n, 3)
+    fall = torch.tensor([0.0, 0.0, -0.5], device=dev).expand(n, 3)
+    sel = lambda m, a, b: torch.where(m[:, None], a, b)
+    on = rest | drop
+    ph.box_pos = sel(on, pos + sel(drop, torch.tensor([0.0, 0.0, 0.012], device=dev).expand(n, 3),
+                                   torch.zeros_like(pos)), ph.box_pos)
+    ph.box_quat = sel(on, quat, ph.box_quat)
+    ph.box_linvel = sel(rest, push, sel(drop, fall, ph.box_linvel))
+    ph.box_angvel = sel(on, torch.zeros_like(ph.box_angvel), ph.box_angvel)
+    return ph
+
+
+def contact_counts(engine, ph, dr):
+    """Envs with cube-cube contact and with the platform on the ground (the
+    plain engine's narrowphase on this state)."""
+    p = engine.params
+    box = (ph.box_pos, ph.box_quat, ph.box_linvel, ph.box_angvel)
+    box2 = (ph.box2_pos, ph.box2_quat, ph.box2_linvel, ph.box2_angvel)
+    bm, bi = p.box_mass * dr.box_mass_scale, engine.box_inertia * dr.box_mass_scale
+    b2m, b2i = p.box2_mass * dr.box_mass_scale, engine.box2_inertia * dr.box_mass_scale
+    mu = torch.ones_like(bm)[:, None]  # per env, over the corners
+    fa, _, _, _ = engine._box_box(box, box2, p.box_size / 2.0, bm, bi, p.box2_size / 2.0, b2m,
+                                  b2i, mu)
+    g_kick = torch.tensor([0.0, 0.0, p.gravity * engine.substep_dt], device=bm.device)
+    fg, _ = engine._box_ground(box2, p.box2_size / 2.0, b2m, b2i, mu, g_kick)
+    nz = lambda f: int((f.abs().sum(1) > 0).sum())
+    return nz(fa), nz(fg)
+
+
+def k1_vs_plain(fused, env, state, gen, dev, n):
+    """K1 (`fused.kernel`) against its plain version on `state` packed, every
+    other env at its last step (the reset merge runs on half), and a second
+    K1 launch on the same inputs. Returns (errors, the K1 inputs, K1's
+    outputs, the number of dones)."""
+    fs = fused.pack(state)
+    fs.rows_i[fused.layout.offs_i["episode_step_count"][0], ::2] = (
+        env.comps.term_cfg.max_episode_length - 2)
+    acts = torch.rand(n, env.num_actions, generator=gen, device=dev) * 2 - 1
+    reset, drs = env.draw_samples(n, fs.difficulty)
+    rst, drn = fused.operand_rows(reset, drs, n, dev)
+    spw = env._spawn[:, None].expand(3, n).contiguous()
+    ins = (acts.t().contiguous(), rst, drn, spw)
+    rf_k, ri_k, rf_p, ri_p, rf_k2, ri_k2 = (x.clone() for x in (fs.rows_f, fs.rows_i) * 3)
+    ko = fused.kernel(rf_k, ri_k, *ins)
+    po = fused.kernel_plain(rf_p, ri_p, *ins)
+    ko2 = fused.kernel(rf_k2, ri_k2, *ins)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip((rf_k, ri_k, *ko), (rf_k2, ri_k2, *ko2)))
+    mism = (ko[3] != po[3]).any(0)
+    ok = ~mism
+    err = {"mask_mismatches": int(mism.sum()), "bitwise": same,
+           "obs": float((ko[1][:, ok] - po[1][:, ok]).abs().max()),
+           "rew": float((ko[2][:, ok] - po[2][:, ok]).abs().max()),
+           "comp": float((ko[4][:, ok] - po[4][:, ok]).abs().max()),
+           "rows_f": rel_err(rf_k[:, ok], rf_p[:, ok]),
+           "rows_i_equal": bool(torch.equal(ri_k[:, ok], ri_p[:, ok]))}
+    return err, (fs, ins), ko, int(ko[3][0].sum())
+
+
+def rollout(env, fused, gen, dev, n, steps, unfused_steps):
+    """The counted main path of a task: reset, `steps` fused steps of
+    uniform random actions, then `unfused_steps` of the unfused step (the
+    evaluation path); launch counters zeroed before and read after. Returns
+    (env-steps/s of the fused steps, dones, finite, obs shape, launches)."""
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    fs, obs = fused.reset()
+    n_dones, finite = 0, True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(steps):
+        acts = torch.rand(n, env.num_actions, generator=gen, device=dev) * 2 - 1
+        fs, obs, rew, done, _ = fused.step_fn(fs, acts)
+        n_dones += done.sum()
+        if step % 100 == 99:
+            finite &= bool(torch.isfinite(obs).all() & torch.isfinite(rew).all())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    finite &= bool(torch.isfinite(obs).all() & torch.isfinite(rew).all())
+    env.state = fused.unpack(fs)
+    for _ in range(unfused_steps):
+        obs_u, rew_u, _, _ = env.step(torch.rand(n, env.num_actions, generator=gen, device=dev) * 2 - 1)
+        finite &= bool(torch.isfinite(obs_u).all() & torch.isfinite(rew_u).all())
+    torch.cuda.synchronize()
+    return steps * n / secs, int(n_dones), finite, tuple(obs.shape), dict(kb.LAUNCHES)
+
+
+def _base_env(make_env, load_config, gen, dev):
+    """BaseTask at N_ENVS envs after 2 plain steps: (env, fused, state)."""
+    env = make_env(load_config(["task=BaseTask", f"numEnvs={N_ENVS}"]), seed=9, device=dev)
+    return env, env.make_fused(), plain_steps(env, gen, dev, N_ENVS, 2)
+
+
+def plain_steps(env, gen, dev, n, k):
+    """`k` plain steps (the plain fused step's ops) of uniform random
+    actions from a reset: a contact-rich state."""
+    state, _ = env.reset_fn()
+    for _ in range(k):
+        samples = env.draw_samples(n, state.difficulty)
+        acts = torch.rand(n, env.num_actions, generator=gen, device=dev) * 2 - 1
+        state, *_ = env._step(state, acts, *samples, env._plain_control_step)
+    return state
 
 
 def main() -> int:
@@ -144,9 +294,12 @@ def main() -> int:
     from dexrobot_isaac_tpu_torch.ops import linalg
     from dexrobot_isaac_tpu_torch.physics import lane_step
     from dexrobot_isaac_tpu_torch.physics.engine import HandPhysics
-    from dexrobot_isaac_tpu_torch.utils import kernel_build as kb
+    from dexrobot_isaac_tpu_torch.physics.types import box_rows
+    from dexrobot_isaac_tpu_torch.utils import kernel_build
     from dexrobot_isaac_tpu_torch.utils.config import load_config
 
+    global kb
+    kb = kernel_build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -157,7 +310,7 @@ def main() -> int:
     # ---------------------------------------------------------------- 1 build
     secs = kb.build_all()
     log(f"[build] nvcc seconds: {json.dumps({k: round(v, 1) for k, v in secs.items()})}")
-    for name in kb.SOURCES:
+    for name in kb.BUILDS:
         with open(kb.lib_path(name) + ".ptxas.txt") as f:
             for line in kb.ptxas_lines(f.read()):
                 log(f"[build] {name}: {line}")
@@ -167,6 +320,8 @@ def main() -> int:
         f"{k} {smem} B shared per block of {per} {unit(k)}, {blocks} blocks = {blocks * per} "
         f"{unit(k)} resident per SM" for k, (smem, blocks, per) in occ.items()))
     check(all(b >= 1 for _, b, _ in occ.values()), f"a kernel cannot be resident: {occ}")
+    check(all(occ[k][1] * occ[k][2] == 32 for k in ("fused_step", "control_step")),
+          f"the BlindGrasping builds no longer hold 32 envs per SM: {occ}")
 
     # ---------------------------------------------------------------- 2 golden
     golden = dict(np.load(GOLDEN))
@@ -235,42 +390,80 @@ def main() -> int:
     check(mz_err <= 1e-5, "min_site_z disagrees with the plain FK")
 
     # ---------------------------------------------------------------- 4 K1
-    fs_k1 = fused.pack(state)  # K1's inputs, timed again in phase 6
-    # every other env at its last episode step: the step's reset merge and
-    # spawn projection run on half the envs
-    o_epi = fused.layout.offs_i["episode_step_count"][0]
-    fs_k1.rows_i[o_epi, ::2] = c.term_cfg.max_episode_length - 2
-    acts = (torch.rand(N_ENVS, env.num_actions, generator=gen, device=dev) * 2 - 1)
-    reset, drs = env.draw_samples(N_ENVS, fs_k1.difficulty)
-    rst, drn = fused.operand_rows(reset, drs, N_ENVS, dev)
-    spw = env._spawn[:, None].expand(3, N_ENVS).contiguous()
-    act_T = acts.t().contiguous()
-    rf_k, ri_k = fs_k1.rows_f.clone(), fs_k1.rows_i.clone()
-    rf_p, ri_p = fs_k1.rows_f.clone(), fs_k1.rows_i.clone()
-    ko = fused.kernel(rf_k, ri_k, act_T, rst, drn, spw)
-    po = fused.kernel_plain(rf_p, ri_p, act_T, rst, drn, spw)
-    # a second launch on the same inputs gives the same bits
-    rf_k2, ri_k2 = fs_k1.rows_f.clone(), fs_k1.rows_i.clone()
-    ko2 = fused.kernel(rf_k2, ri_k2, act_T, rst, drn, spw)
-    torch.cuda.synchronize()
-    same_bits = all(torch.equal(a, b) for a, b in zip((rf_k, ri_k, *ko), (rf_k2, ri_k2, *ko2)))
-    log(f"[K1] two launches on the same inputs bitwise equal: {same_bits}")
-    check(same_bits, "K1 gave different bits on the same inputs")
-    mism = (ko[3] != po[3]).any(0)
-    ok = ~mism
-    k1 = {"obs": float((ko[1][:, ok] - po[1][:, ok]).abs().max()),
-          "rew": float((ko[2][:, ok] - po[2][:, ok]).abs().max()),
-          "comp": float((ko[4][:, ok] - po[4][:, ok]).abs().max()),
-          "rows_f": rel_err(rf_k[:, ok], rf_p[:, ok])}
-    ri_equal = bool(torch.equal(ri_k[:, ok], ri_p[:, ok]))
-    n_done = int(ko[3][0].sum())
-    log(f"[K1] fused step vs plain at {N_ENVS} envs: mask mismatches {int(mism.sum())} "
+    # K1's inputs (timed again in phase 9): phase 3's state, every other env
+    # at its last episode step, so the step's reset merge and spawn
+    # projection run on half the envs
+    k1, (fs_k1, (act_T, rst, drn, spw)), ko, n_done = k1_vs_plain(fused, env, state, gen, dev,
+                                                                  N_ENVS)
+    log(f"[K1] two launches on the same inputs bitwise equal: {k1['bitwise']}")
+    check(k1["bitwise"], "K1 gave different bits on the same inputs")
+    log(f"[K1] fused step vs plain at {N_ENVS} envs: mask mismatches {k1['mask_mismatches']} "
         f"(dones {n_done}); where masks agree max abs err obs {k1['obs']:.3e} "
         f"rew {k1['rew']:.3e} comp {k1['comp']:.3e}, rows_f rel {k1['rows_f']:.2e}, "
-        f"rows_i equal {ri_equal}")
-    check(int(mism.sum()) <= N_ENVS // 100 and n_done >= N_ENVS // 2 and k1["obs"] <= 2e-4
-          and k1["rew"] <= 1e-3 and k1["comp"] <= 1e-3 and k1["rows_f"] <= 1e-3 and ri_equal,
-          "K1 disagrees with the plain fused step")
+        f"rows_i equal {k1['rows_i_equal']}")
+    check(k1["mask_mismatches"] <= N_ENVS // 100 and n_done >= N_ENVS // 2 and k1["obs"] <= 2e-4
+          and k1["rew"] <= 1e-3 and k1["comp"] <= 1e-3 and k1["rows_f"] <= 1e-3
+          and k1["rows_i_equal"], "K1 disagrees with the plain fused step")
+
+    # ---------------------------------------------------------------- box2
+    env_st = make_env(load_config(["task=BoxStacking", f"numEnvs={N_ENVS}"]), seed=7, device=dev)
+    c_st = env_st.comps
+    fused_st = env_st.make_fused()
+    t0 = time.perf_counter()
+    state_st = plain_steps(env_st, gen, dev, N_ENVS, 3)
+    ph_st = stacked_scene(env_st, state_st, gen)
+    state_st = dataclasses.replace(state_st, physics=ph_st)
+    torch.cuda.synchronize()
+    log(f"[box2] 3 plain BoxStacking steps at {N_ENVS} envs: {time.perf_counter() - t0:.1f} s")
+    tgt_st, dr_st = state_st.full_dof_targets, state_st.dr
+    steps_st = c_st.physics_steps_per_control
+    cs_box2 = lane_step.build_control_step(c_st.engine, steps_st)
+    kst2, kinfo2, kkin2 = cs_box2(ph_st, tgt_st, spawn, dr_st)
+    kst2b, kinfo2b, _ = cs_box2(ph_st, tgt_st, spawn, dr_st)
+    plain_st = c_st.engine.plain_control_step(steps_st)
+    pst2, pinfo2, pkin2 = plain_st(ph_st, tgt_st, spawn, dr_st)
+    torch.cuda.synchronize()
+    boxes = lambda s_: box_rows(s_, True)
+    bforce = lambda i: torch.cat([i.box_contact_force, i.box2_contact_force], 1)
+    box2_bits = all(torch.equal(a_, b_) for a_, b_ in (
+        (kst2.q, kst2b.q), (kst2.qd, kst2b.qd), (boxes(kst2), boxes(kst2b)),
+        (bforce(kinfo2), bforce(kinfo2b)),
+        (kinfo2.body_contact_force, kinfo2b.body_contact_force)))
+    k2b = {"q": rel_err(kst2.q, pst2.q), "qd": rel_err(kst2.qd, pst2.qd),
+           "box": rel_err(boxes(kst2)[:, :13], boxes(pst2)[:, :13]),
+           "box2": rel_err(boxes(kst2)[:, 13:], boxes(pst2)[:, 13:]),
+           "box_force": rel_err(kinfo2.box_contact_force, pinfo2.box_contact_force),
+           "box2_force": rel_err(kinfo2.box2_contact_force, pinfo2.box2_contact_force),
+           "contact_force": rel_err(kinfo2.body_contact_force, pinfo2.body_contact_force),
+           "site_pos": rel_err(kkin2.site_pos, pkin2.site_pos)}
+    k2b_abs = max(float((a_ - b_).abs().max()) for a_, b_ in
+                  ((kst2.q, pst2.q), (kst2.qd, pst2.qd), (boxes(kst2), boxes(pst2))))
+    n_cube, n_plat = contact_counts(c_st.engine, ph_st, dr_st)
+    n_hand = int((pinfo2.body_contact_force.abs().sum((1, 2)) > 0).sum())
+    log(f"[box2] K2 two-box build vs plain at {N_ENVS} envs ({n_cube} envs with cube-cube "
+        f"contact, {n_plat} with the platform on the ground, {n_hand} in hand contact): "
+        "relative err " + " ".join(f"{k} {v:.2e}" for k, v in k2b.items())
+        + f"; two launches bitwise equal: {box2_bits}")
+    check(all(v <= 1e-3 for v in k2b.values()) and box2_bits and n_cube > 0 and n_plat > 0
+          and n_hand > 0, "K2's two-box build disagrees with the plain engine, is not bitwise "
+          "stable, or the state lacks a contact kind")
+
+    # ---------------------------------------------------------------- stacking, base
+    k1_runs = {}
+    for label, env_t, fused_t, state_t in (
+            ("stacking", env_st, fused_st, state_st),
+            ("base", *_base_env(make_env, load_config, gen, dev))):
+        err, ins_t, ko_t, done_t = k1_vs_plain(fused_t, env_t, state_t, gen, dev, N_ENVS)
+        k1_runs[label] = (env_t, fused_t, err, ins_t, ko_t, done_t)
+        log(f"[{label}] K1 {fused_t.build} vs plain at {N_ENVS} envs: mask mismatches "
+            f"{err['mask_mismatches']} (dones {done_t}); max abs err obs {err['obs']:.3e} "
+            f"(atol 2e-4) rew {err['rew']:.3e} (atol 1e-3) comp {err['comp']:.3e}, rows_f rel "
+            f"{err['rows_f']:.2e}, rows_i equal {err['rows_i_equal']}; two launches bitwise "
+            f"equal {err['bitwise']}")
+        check(err["mask_mismatches"] == 0 and done_t >= N_ENVS // 2 and err["obs"] <= 2e-4
+              and err["rew"] <= 1e-3 and err["comp"] <= 1e-3 and err["rows_f"] <= 1e-3
+              and err["rows_i_equal"] and err["bitwise"],
+              f"K1's {fused_t.build} build disagrees with the plain fused step")
 
     # ---------------------------------------------------------------- 5 K3
     eng_c = HandPhysics(model=c.model, params=dataclasses.replace(c.engine.params, coriolis=True),
@@ -325,38 +518,33 @@ def main() -> int:
     # ---------------------------------------------------------------- 7 main path
     env = make_env(load_config(["task=BlindGrasping", f"numEnvs={N_ENVS}"]), seed=42, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    torch.cuda.synchronize()
-    kb.reset_launches()
     fused = env.make_fused()
-    fs, obs = fused.reset()
-    n_dones, finite = 0, True
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for step in range(ROLLOUT_STEPS):
-        acts = torch.rand(N_ENVS, env.num_actions, generator=gen, device=dev) * 2 - 1
-        fs, obs, rew, done, _ = fused.step_fn(fs, acts)
-        n_dones += done.sum()
-        if step % 100 == 99:
-            finite &= bool(torch.isfinite(obs).all() & torch.isfinite(rew).all())
-    torch.cuda.synchronize()
-    rollout_s = time.perf_counter() - t0
-    finite &= bool(torch.isfinite(obs).all() & torch.isfinite(rew).all())
-    env.state = fused.unpack(fs)
-    for _ in range(10):  # the unfused step: the evaluation path
-        obs_u, rew_u, done_u, _ = env.step(
-            torch.rand(N_ENVS, env.num_actions, generator=gen, device=dev) * 2 - 1)
-    torch.cuda.synchronize()
-    launches = dict(kb.LAUNCHES)
-    n_dones = int(n_dones)
-    finite &= bool(torch.isfinite(obs_u).all() & torch.isfinite(rew_u).all())
-    sps = ROLLOUT_STEPS * N_ENVS / rollout_s
-    log(f"[main] {ROLLOUT_STEPS} fused steps x {N_ENVS} envs in {rollout_s:.2f} s = "
-        f"{sps:,.0f} env-steps/s; dones {n_dones}; finite {finite}; obs {tuple(obs.shape)}; "
-        f"launches {launches}")
-    check(finite and n_dones > 0 and tuple(obs.shape) == (N_ENVS, fused.obs_dim),
+    sps, n_dones, finite, obs_shape, launches = rollout(env, fused, gen, dev, N_ENVS,
+                                                       ROLLOUT_STEPS, 10)
+    log(f"[main] {ROLLOUT_STEPS} fused steps x {N_ENVS} envs = {sps:,.0f} env-steps/s; dones "
+        f"{n_dones}; finite {finite}; obs {obs_shape}; launches {launches}")
+    check(finite and n_dones > 0 and obs_shape == (N_ENVS, fused.obs_dim),
           "rollout output not finite, of the wrong shape, or without a done")
     check(launches["fused_step"] == ROLLOUT_STEPS and launches["control_step"] == 10
           and launches["min_site_z"] >= 1, f"main path missed a kernel: {launches}")
+    # BoxStacking's and BaseTask's paths, each counted on its own
+    path_sps = {}
+    for label, task, steps, k1_build, k2_build in (
+            ("stacking", "BoxStacking", ROLLOUT_STEPS, "fused_step_stacking", "control_step_box2"),
+            ("base", "BaseTask", 100, "fused_step_base", "control_step")):
+        env_p = make_env(load_config([f"task={task}", f"numEnvs={N_ENVS}"]), seed=42, device=dev)
+        fused_p = env_p.make_fused()
+        sps_p, dones_p, finite_p, shape_p, counts = rollout(env_p, fused_p, gen, dev, N_ENVS,
+                                                            steps, 10)
+        path_sps[label] = sps_p
+        launches[k1_build] = counts[k1_build]
+        if k2_build != "control_step":
+            launches[k2_build] = counts[k2_build]
+        log(f"[{label}] {task}: {steps} fused steps x {N_ENVS} envs = {sps_p:,.0f} env-steps/s; "
+            f"dones {dones_p}; finite {finite_p}; obs {shape_p}; launches {counts}")
+        check(finite_p and shape_p == (N_ENVS, fused_p.obs_dim) and counts[k1_build] == steps
+              and counts[k2_build] == 10, f"the {task} path missed a kernel: {counts}")
+        check(label != "stacking" or dones_p > 0, "the BoxStacking rollout had no done")
 
     # ---------------------------------------------------------------- 8 train
     # the CLI trainer in-process; run directories under ROOT/runs_all
@@ -365,7 +553,7 @@ def main() -> int:
             "train.params.config.log_interval=1"]
 
     def train_run(args, expect_fused):
-        sess = cli.build(load_config(base + args))
+        sess = cli.build(load_config(args if args[0].startswith("task=") else base + args))
         check((sess.fused is not None) == expect_fused, f"fused step choice for {args}")
         torch.cuda.synchronize()
         kb.reset_launches()
@@ -412,6 +600,32 @@ def main() -> int:
         f"launches {ev_launches}")
     check(ev_launches["control_step"] > 0 and ev.stats[-1]["episodes"] >= N_ENVS,
           f"evaluation missed K2: {ev_launches}")
+
+    # BoxStacking through the CLI: fused=auto takes K1's BoxStacking build;
+    # its config's dispatch chunking runs (one chunk of 2 iterations)
+    base_st = ["task=BoxStacking", f"numEnvs={N_ENVS}", "train.logging.noLogFile=true",
+               "train.params.config.log_interval=1"]
+    st, st_launches, st_s = train_run(base_st + [
+        "maxIterations=2", "train.params.config.dispatch_chunk=2",
+        "train.params.config.save_frequency=2"], True)
+    h_st = st.learner.cfg.horizon_length
+    for s_ in st.stats:
+        log(f"[stacking] train, iterations 1-{s_['iteration']}: {s_['env_steps_per_s']:,.0f} "
+            f"env-steps/s, last rollout {s_['rollout_s'] * 1e3:.1f} ms, update "
+            f"{s_['update_s'] * 1e3:.1f} ms; kl {s_['kl']:.4f}, reward {s_['reward_mean']:.3f}")
+    log(f"[stacking] 2 PPO iterations x {h_st} steps x {N_ENVS} envs through the CLI in "
+        f"{st_s:.2f} s; launches {st_launches}")
+    check(st_launches["fused_step_stacking"] == 2 * h_st and finite_params(st)
+          and all(np.isfinite(list(s_.values())).all() for s_ in st.stats),
+          f"BoxStacking training missed K1 or went non-finite: {st_launches}")
+    ckpt_st = os.path.join(st.run_dir, "nn", "latest.pt")
+    sev, sev_launches, sev_s = train_run(base_st + [
+        "test=true", f"checkpoint={ckpt_st}", f"testGamesNum={N_ENVS}", "env.episodeLength=4"],
+        False)
+    log(f"[stacking] eval from {os.path.relpath(ckpt_st, ROOT)}: {sev.stats[-1]} in "
+        f"{sev_s:.2f} s; launches {sev_launches}")
+    check(sev_launches["control_step_box2"] > 0 and sev.stats[-1]["episodes"] >= N_ENVS,
+          f"BoxStacking evaluation missed K2's two-box build: {sev_launches}")
 
     # ---------------------------------------------------------------- 9 numbers
     # kernel timings on the phase-3/4/5 inputs (launches here are not counted).
@@ -468,6 +682,27 @@ def main() -> int:
     k3_lib_ms = cuda_ms(lambda: torch.linalg.solve(A3, b3[..., None]), 20)
     log(f"[numbers] spd_solve library yardsticks: torch.linalg.solve {k3_lib_ms:.4f} ms, "
         f"cholesky + cholesky_solve (the plain version) {k3_plain_ms:.4f} ms")
+    # K1's BoxStacking and BaseTask builds on their phase inputs, K2's
+    # two-box build on phase [box2]'s
+    k1_task = {}
+    for label, (env_t, fused_t, err, (fs_t, ins_t), ko_t, done_t) in k1_runs.items():
+        rf_t, ri_t = fs_t.rows_f.clone(), fs_t.rows_i.clone()
+
+        def on_inputs(fn, fs_t=fs_t, rf_t=rf_t, ri_t=ri_t, ins_t=ins_t):
+            rf_t.copy_(fs_t.rows_f)
+            ri_t.copy_(fs_t.rows_i)
+            return fn(rf_t, ri_t, *ins_t)
+
+        k1_task[label] = dict(
+            ms=kb.device_ms(lambda: on_inputs(fused_t.kernel), 20),
+            paced=cuda_ms(lambda: on_inputs(fused_t.kernel), 20),
+            plain=cuda_ms(lambda: on_inputs(fused_t.kernel_plain), 1, 1),
+            bytes=nbytes(rf_t, ri_t, *ins_t, *ko_t, rf_t, ri_t))
+    rows2 = (T(ph_st.q), T(ph_st.qd), T(tgt_st), T(spawn), T(boxes(ph_st)),
+             dr_st.rows().contiguous())
+    k2b_fn = lambda: lane_step.control_step_rows(c_st.engine, steps_st, *rows2)
+    k2b_ms, k2b_paced_ms = kb.device_ms(k2b_fn, 20), cuda_ms(k2b_fn, 20)
+    k2b_plain_ms = cuda_ms(lambda: plain_st(ph_st, tgt_st, spawn, dr_st), 1, 1)
 
     # where a rollout step's time goes: torch.profiler over 20 fused steps
     from torch.profiler import ProfilerActivity, profile
@@ -475,6 +710,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        fs = fused.pack(env.state)
         for _ in range(20):
             acts = torch.rand(N_ENVS, env.num_actions, generator=gen, device=dev) * 2 - 1
             fs, obs, rew, done, _ = fused.step_fn(fs, acts)
@@ -503,6 +739,17 @@ def main() -> int:
     b_msz = 4 * N_ENVS * (26 + 3 + 1)
     b_k3 = linalg.spd_solve_bytes(26) * N_ENVS
     f_k3 = linalg.spd_solve_flops(26) * N_ENVS
+    r2 = lane_step.lane_model_array(c_st.engine, steps_st, kb.load("control_step_box2"))
+    f_k2b = lane_step.control_step_flops(r2) * N_ENVS
+    b_k2b = nbytes(*rows2, *lane_step.control_step_rows(c_st.engine, steps_st, *rows2))
+    for label, env_t in (("stacking", env_st), ("base", k1_runs["base"][0])):
+        fused_t, done_t = k1_runs[label][1], k1_runs[label][5]
+        r_t = lane_step.lane_model_array(env_t.comps.engine, env_t.comps.physics_steps_per_control,
+                                         kb.load(fused_t.build))
+        cfg_t = fused_step.fused_config_array(env_t, fused_t.layout, fused_t.comp_names,
+                                              fused_t.rst_rows, kb.load(fused_t.build))
+        k1_task[label]["flops"] = fused_step.fused_step_flops(cfg_t, r_t, N_ENVS, done_t,
+                                                              fused_t.build)
     launches["spd_solve"] = co_launches["spd_solve"]
     k3_bound = bound(b_k3, f_k3)[0]
     log(f"[numbers] spd_solve at {N_ENVS} systems: warm {k3_ms:.5f} ms/launch (queued; paced by "
@@ -525,6 +772,14 @@ def main() -> int:
         ("spd_solve", "dexrobot_isaac_tpu_torch/csrc/spd_solve.cu",
          "dexrobot_isaac_tpu/ops/linalg.py:113", k3_ms, k3_paced_ms, k3_plain_ms, k3_abs,
          bound(b_k3, f_k3), k3_lib_ms),
+        *((k1_runs[label][1].build, "dexrobot_isaac_tpu_torch/csrc/fused_step.cu",
+           "dexrobot_isaac_tpu/envs/fused_step.py:1080", k1_task[label]["ms"],
+           k1_task[label]["paced"], k1_task[label]["plain"], k1_runs[label][2]["obs"],
+           bound(k1_task[label]["bytes"], k1_task[label]["flops"]), None)
+          for label in ("stacking", "base")),
+        ("control_step_box2", "dexrobot_isaac_tpu_torch/csrc/control_step.cu",
+         "dexrobot_isaac_tpu/physics/pallas_step.py:1141", k2b_ms, k2b_paced_ms, k2b_plain_ms,
+         k2b_abs, bound(b_k2b, f_k2b), None),
     ):
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": launches[name], "max_abs_err": err, "ms": ms,
@@ -533,7 +788,8 @@ def main() -> int:
         log(f"[numbers] {name}: {ms:.5f} ms/launch (paced by the host {paced:.5f}), plain "
             f"{pms:.4f} ms, bound {bms:.5f} ms ({by}), library "
             f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, launches {launches[name]}")
-    log(f"[numbers] env-steps/s {sps:,.0f}, training env-steps/s {train_sps:,.0f} ({card}); "
+    log(f"[numbers] env-steps/s {sps:,.0f} (BoxStacking {path_sps['stacking']:,.0f}, BaseTask "
+        f"{path_sps['base']:,.0f}), training env-steps/s {train_sps:,.0f} ({card}); "
         f"total {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

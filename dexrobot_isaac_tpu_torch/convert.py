@@ -5,7 +5,8 @@ runs `jax.device_get` first); this module imports nothing of JAX and reads
 them by attribute name, so both packages compute on the same values:
 
 - `env_state`: a JAX `EnvState` -> the port's `EnvState` (its `rng` key has
-  no counterpart: the port's env owns a torch.Generator);
+  no counterpart: the port's env owns a torch.Generator), the second box's
+  leaves included where the scene has one;
 - `fused_state`: a JAX `FusedEnvState` -> the port's `FusedEnvState`;
 - `task_reset` / `dr_sample`: JAX reset and DR samples -> the port's, which
   `envs/fused_step.py` `operand_rows` turns into the kernel's operand rows;
@@ -39,8 +40,14 @@ def tensor(x, device="cuda") -> torch.Tensor:
     return torch.as_tensor(np.array(x), device=resolve_device(device))
 
 
+def _opt(x, device):
+    """A tensor of x, or None for a leaf the JAX state leaves out (the
+    second box of a single-box scene)."""
+    return None if x is None else tensor(x, device)
+
+
 def _fields(cls, src, device, names=None):
-    return {f.name: tensor(getattr(src, f.name), device)
+    return {f.name: _opt(getattr(src, f.name), device)
             for f in dataclasses.fields(cls) if names is None or f.name in names}
 
 
@@ -65,12 +72,12 @@ def fused_state(src, device="cuda") -> FusedEnvState:
 
 
 def task_reset(src, device="cuda") -> TaskReset:
-    opt = lambda x: None if x is None else tensor(x, device)
     return TaskReset(
-        dof_pos=tensor(src.dof_pos, device), box_pos=opt(src.box_pos),
-        box_quat=opt(src.box_quat),
+        dof_pos=tensor(src.dof_pos, device), box_pos=_opt(src.box_pos, device),
+        box_quat=_opt(src.box_quat, device),
         task_states=None if src.task_states is None
         else {k: tensor(v, device) for k, v in src.task_states.items()},
+        box2_pos=_opt(src.box2_pos, device), box2_quat=_opt(src.box2_quat, device),
     )
 
 

@@ -12,7 +12,9 @@
 // 10*7 = 564) = 710 floats: ~3.2 KB/env, ~13 MB at 4096 envs, ~4 us at
 // 3.35 TB/s. The 16 substeps carry ~5e5 f32 FLOPs/env (FK, 39 spheres x
 // ground/box, 40 pairs, CRBA, LTL), ~2e9 at 4096 envs, ~30 us at 67 TFLOP/s:
-// the FLOPs bound it. The half-warp design is bound by its serial phases;
+// the FLOPs bound it. The two-cube build (-DLP_HAS_BOX2=1, its own library)
+// adds 13 box rows in and out and 3 box-force rows, and per substep 39
+// spheres vs the second box, its 8 corners and 16 cube-cube corners. The half-warp design is bound by its serial phases;
 // what hides their latency is the number of envs resident per SM (the
 // shared slot per env, LpEnv, and the registers per thread: 32 envs).
 //
@@ -67,7 +69,7 @@ LP_DEV void cs_stage_in(const LaneModel* m, LpEnv* envs, int e0, int n, const fl
   lp_stage_in(qd, nb, n, e0, envs[0].qd, CS_STRIDE, tid, nthr);
   lp_stage_in(tgt, nb, n, e0, envs[0].tgt, CS_STRIDE, tid, nthr);
   lp_stage_in(spawn, 3, n, e0, envs[0].spawn, CS_STRIDE, tid, nthr);
-  lp_stage_in(box, 13, n, e0, envs[0].box, CS_STRIDE, tid, nthr);
+  lp_stage_in(box, LP_BOX_ROWS, n, e0, envs[0].box, CS_STRIDE, tid, nthr);
   lp_stage_in(dr, 4, n, e0, envs[0].drv, CS_STRIDE, tid, nthr);
 }
 
@@ -77,9 +79,9 @@ LP_DEV void cs_stage_out(const LaneModel* m, const LpEnv* envs, int e0, int n, f
   const int nb = m->nb;
   lp_stage_out(q_out, nb, n, e0, envs[0].q, CS_STRIDE, tid, nthr);
   lp_stage_out(qd_out, nb, n, e0, envs[0].qd, CS_STRIDE, tid, nthr);
-  lp_stage_out(box_out, 13, n, e0, envs[0].box, CS_STRIDE, tid, nthr);
+  lp_stage_out(box_out, LP_BOX_ROWS, n, e0, envs[0].box, CS_STRIDE, tid, nthr);
   lp_stage_out(cf_out, nb * 3, n, e0, envs[0].cf, CS_STRIDE, tid, nthr);
-  lp_stage_out(bf_out, 3, n, e0, envs[0].bf, CS_STRIDE, tid, nthr);
+  lp_stage_out(bf_out, LP_BF_ROWS, n, e0, envs[0].bf, CS_STRIDE, tid, nthr);
   lp_stage_out(kin_out, nb * 19 + m->nsite * 7, n, e0, (const float*)&envs[0].u, CS_STRIDE,
                tid, nthr);
 }
@@ -145,10 +147,11 @@ int lane_model_layout(LP_LAYOUT_ARGS) {
 }
 
 // The lane kernel's static sizes the model buffer must respect: mass-matrix
-// entries and lanes per env.
-int lane_caps(int* max_m, int* lanes_per_env) {
+// entries and lanes per env; and whether this build carries the second box.
+int lane_caps(int* max_m, int* lanes_per_env, int* has_box2) {
   *max_m = LP_MAXM;
   *lanes_per_env = LP_W;
+  *has_box2 = LP_HAS_BOX2;
   return 0;
 }
 

@@ -1,4 +1,5 @@
-// K1: the fused env step, one whole BlindGrasping control step per env.
+// K1: the fused env step, one whole control step per env, for BlindGrasping,
+// BaseTask or BoxStacking.
 //
 // Replaces the TPU kernel of dexrobot_isaac_tpu/envs/fused_step.py
 // (build_fused_step -> kernel_body, pallas_call at :1080 in
@@ -10,35 +11,51 @@
 // projection of the reset rows (lp_min_site_z, the min_site_z kernel's code,
 // which the factory's reset closure calls) on the whole warp, for every env
 // since whether it resets is known only after the task step; then on lane 0
-// the fingertip/pad sites, the default observations, BlindGrasping's task
-// step, the hitting-ground check, termination, the common + task rewards and
-// their weighted sum, the obs/reward/mask/component rows and the
-// done-masked reset merge. rows_f / rows_i are read and written IN PLACE
-// (the JAX kernel aliases them): a block stages all of its envs' columns
-// into shared memory before any is overwritten.
+// the fingertip/pad sites, the default observations, the task's step, the
+// hitting-ground check (the task's own, where it has one, takes precedence),
+// termination, the common + task rewards and their weighted sum, the
+// obs/reward/mask/component rows and the done-masked reset merge. rows_f /
+// rows_i are read and written IN PLACE (the JAX kernel aliases them): a
+// block stages all of its envs' columns into shared memory before any is
+// overwritten.
 //
-// The static plan (obs key order, reward weights, component order, active
-// criteria and flag rows, row offsets, action limits, task constants) is
-// DATA in a FusedConfig buffer built by envs/fused_step.py.
+// The task is chosen at compile time, each build its own library
+// (utils/kernel_build.py BUILDS), as the JAX package traces one kernel per
+// task: FS_TASK 1 BlindGrasping (the default), 0 BaseTask (no task step:
+// the builtin hitting-ground criterion and the common rewards), 2
+// BoxStacking (with -DLP_HAS_BOX2=1: the platform cube's 13 state rows, its
+// 7 reset rows, its contact force). The static plan (obs key order, reward
+// weights, component order, active criteria and flag rows, row offsets,
+// action limits, task constants) is DATA in a FusedConfig buffer built by
+// envs/fused_step.py.
 //
-// What bounds it on the H100: per env it reads rows_f (141) + rows_i (22) +
-// actions (18) + reset rows (43) + DR (4) + spawn (3) = 231 words and writes
-// rows_f + rows_i (163), rows_c (104), obs (158), reward (1), masks (4) and
-// components (39) = 469 words: ~2.8 KB/env, ~11.5 MB at 4096 envs, ~3.4 us
-// at 3.35 TB/s. The 16 substeps of lane physics carry ~5e5 f32 FLOPs/env
-// (~2e9 at 4096 envs, ~30 us at 67 TFLOP/s), so the FLOPs bound it. The
-// half-warp design is bound by the physics' serial phases, hidden by the
-// envs resident per SM; the staged column (~1 KB) makes K1's slot of shared
-// memory larger than K2's, and lane 0's part (the two envs of a warp run
-// theirs side by side) works on shared memory, not the thread's stack. Rows are staged in and out with
+// What bounds it on the H100: per env (BlindGrasping) it reads rows_f (141)
+// + rows_i (22) + actions (18) + reset rows (43) + DR (4) + spawn (3) = 231
+// words and writes rows_f + rows_i (163), rows_c (104), obs (158), reward
+// (1), masks (4) and components (39) = 469 words: ~2.8 KB/env, ~11.5 MB at
+// 4096 envs, ~3.4 us at 3.35 TB/s. The 16 substeps of lane physics carry
+// ~5e5 f32 FLOPs/env (~2e9 at 4096 envs, ~30 us at 67 TFLOP/s), so the
+// FLOPs bound it; BoxStacking's second box adds to both. The half-warp
+// design is bound by the physics' serial phases, hidden by the envs
+// resident per SM; the staged column (~1 KB, FS_IN_CAP words sized per
+// build) makes K1's slot of shared memory larger than K2's, and lane 0's
+// part (the two envs of a warp run theirs side by side) works on shared
+// memory, not the thread's stack. Rows are staged in and out with
 // consecutive threads on consecutive envs, so global accesses stay
 // coalesced in the rows x N layout.
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
 
+#ifndef FS_TASK
+#define FS_TASK 1  // 0 BaseTask, 1 BlindGrasping, 2 BoxStacking
+#endif
+
 #include "lane_physics.cuh"
 
+#if FS_TASK == 2 && !LP_HAS_BOX2
+#error "BoxStacking's K1 needs the two-cube lane physics (-DLP_HAS_BOX2=1)"
+#endif
 
 #define FUSED_CONFIG_FIELDS(S, A)                                                \
   S(int, n_act) S(int, position_mode) S(int, controls_base) S(int, controls_fingers) \
@@ -77,13 +94,28 @@
   S(float, bg_tol_drift) S(float, bg_tol_vel) S(float, bg_box_z)                \
   S(float, bg_s3_den) S(float, bg_pen_thr) S(float, bg_min_reward_dist)         \
   S(float, bg_pen_scale) S(float, bg_ub_half) S(float, bg_ub_margin)            \
-  S(float, bg_ub_ground_z) S(float, bg_cdt) S(int, bg_threshold_steps)
+  S(float, bg_ub_ground_z) S(float, bg_cdt) S(int, bg_threshold_steps)          \
+  S(int, f_box2_pos) S(int, f_box2_quat) S(int, f_box2_linvel)                  \
+  S(int, f_box2_angvel) S(int, f_platform_spawn_xy) S(int, f_prev_transport_dist) \
+  S(int, f_spawn_difficulty) S(int, i_hold_duration_steps)                      \
+  S(int, r_hold_duration_steps) S(int, r_platform_spawn_xy)                     \
+  S(int, r_prev_transport_dist) S(int, r_spawn_difficulty)                      \
+  S(float, bs_stack_dz) S(float, bs_pos_tol) S(float, bs_height_tol)            \
+  S(float, bs_rest_speed) S(float, bs_hold_thr) S(float, bs_hold_min)           \
+  S(float, bs_box_far) S(float, bs_move_tol) S(float, bs_contact_thr)           \
+  S(float, bs_prox_thr) S(float, bs_d_prox) S(float, bs_d_transport)            \
+  S(float, bs_d_place) S(float, bs_release_end) S(float, bs_tol_relax)          \
+  S(int, bs_hg_override) S(float, bs_tip_bridge_margin) S(float, bs_pocket_margin) \
+  S(float, bs_pocket_radius) S(float, bs_pocket_end) S(float, bs_handbase_thr)  \
+  S(float, bs_fingertip_thr) S(float, bs_lift_z) S(float, bs_ub_half)           \
+  S(float, bs_ub_margin) S(float, bs_ub_ground_z) S(float, bs_drift_free)
 
 struct FusedConfig {
   FUSED_CONFIG_FIELDS(LP_DECL_S, LP_DECL_A)
 };
 
-// observation keys (envs/fused_step.py OBS_KEYS order)
+// observation keys (envs/fused_step.py OBS_KEYS order): the default keys,
+// then the tasks' (a build fills the default keys and its task's)
 enum {
   OK_BASE_DOF_POS, OK_BASE_DOF_VEL, OK_ACTIVE_FINGER_DOF_POS, OK_ACTIVE_FINGER_DOF_VEL,
   OK_ALL_FINGER_DOF_POS, OK_ALL_FINGER_DOF_VEL, OK_HAND_POSE, OK_HAND_POSE_ARR_ALIGNED,
@@ -96,25 +128,43 @@ enum {
   OK_AVG_FINGER_TO_OBJECT_HEIGHT_DIFF, OK_HAND_TO_OBJECT_DISTANCE, OK_FINGERPAD_DISTANCES,
   OK_FIRST_THREE_FINGERPAD_CENTROID, OK_THUMB_CONTACT, OK_OTHER_FINGERS_CONTACT,
   OK_GRASP_STATE, OK_GRASP_DURATION, OK_CURRENT_STAGE, OK_TIME_IN_STAGE, OK_STAGE_PROGRESS,
+  OK_OBJECT_QUAT, OK_PLATFORM_POS, OK_PLATFORM_QUAT, OK_TO_STACK_TARGET, OK_STACK_DIST,
+  OK_FINGERS_ON_BOX, OK_HOLD_DURATION,
 };
 
-// reward terms (envs/fused_step.py REWARD_TERMS order: common, then task)
+// reward terms (envs/fused_step.py reward_terms_for: the common terms, then
+// the task's), and the criteria (success_criteria_for / failure_criteria_for)
 enum {
   RT_ALIVE, RT_HEIGHT_SAFETY, RT_FINGER_VELOCITY, RT_HAND_VELOCITY,
   RT_HAND_ANGULAR_VELOCITY, RT_JOINT_LIMIT, RT_FINGER_ACCELERATION, RT_HAND_ACCELERATION,
-  RT_HAND_ANGULAR_ACCELERATION, RT_CONTACT_STABILITY,
-  RT_S1_HEIGHT_ALIGNMENT, RT_S1_CENTROID_POSITIONING, RT_S1_OBJECT_STABILITY,
+  RT_HAND_ANGULAR_ACCELERATION, RT_CONTACT_STABILITY, RT_TASK0
+};
+enum { FC_HITTING_GROUND };
+#if FS_TASK == 1
+enum {
+  RT_S1_HEIGHT_ALIGNMENT = RT_TASK0, RT_S1_CENTROID_POSITIONING, RT_S1_OBJECT_STABILITY,
   RT_S1_FINGER_HEIGHT_CONSISTENCY, RT_S1_THUMB_ROTATION, RT_S2_THUMB_CONTACT,
   RT_S2_OTHER_FINGERS_CONTACT, RT_S2_GRASP_ACHIEVEMENT, RT_S2_FINGERPAD_PROXIMITY,
   RT_S2_BASE_STABILITY, RT_S3_OBJECT_HEIGHT, RT_S3_GRASP_MAINTENANCE, RT_S3_GRASP_DURATION,
   RT_S1_COMPLETION, RT_S2_COMPLETION, RT_PENETRATION_PENALTY, RT_UNDER_BOX_PENALTY,
   RT_COUNT
 };
-
-// criteria (SUCCESS_CRITERIA / FAILURE_CRITERIA order)
 enum { SC_GRASP_LIFT_SUCCESS, SC_COUNT };
-enum { FC_HITTING_GROUND, FC_BOX_TOO_FAR, FC_S1_PREGRASP_FAILED, FC_S2_CONTACT_FAILED,
+enum { FC_BOX_TOO_FAR = FC_HITTING_GROUND + 1, FC_S1_PREGRASP_FAILED, FC_S2_CONTACT_FAILED,
        FC_S3_GRASP_LOST, FC_COUNT };
+#elif FS_TASK == 2
+enum {
+  RT_FINGERPAD_PROXIMITY = RT_TASK0, RT_FINGER_CONTACT, RT_LIFT, RT_TRANSPORT,
+  RT_TRANSPORT_DELTA, RT_PLACE, RT_STACKED_HOLD, RT_RELEASE, RT_UNDER_BOX_PENALTY,
+  RT_PLATFORM_DRIFT_PENALTY, RT_COUNT
+};
+enum { SC_STACK_SUCCESS, SC_COUNT };
+enum { FC_BOX_TOO_FAR = FC_HITTING_GROUND + 1, FC_PLATFORM_MOVED, FC_COUNT };
+#else
+enum { RT_COUNT = RT_TASK0 };
+enum { SC_COUNT = 0 };
+enum { FC_COUNT = FC_HITTING_GROUND + 1 };
+#endif
 
 // component kinds: 0 raw term, 1 weighted term, then TERM_COMPONENTS order
 enum { CK_RAW, CK_WEIGHTED, CK_TOTAL, CK_TERM_SUCCESS, CK_TERM_SUCCESS_W,
@@ -130,9 +180,18 @@ struct FsObs {
   float tip_pos[5][3], tip_quat[5][4], pad_pos[5][3], pad_quat[5][4];
   float cfc[8][3], mags[8], binary[8];
   int new_dur[8], epi_old;
-  float box[13];
+  float box[LP_BOX_ROWS];  // the box (and the platform cube: rows 13-25)
   float d_f2o[5], hdiff[5], h2o, fpd[10], centroid[3];
   float thumb, other, grasp, grasp_dur, stage, tis, progress;
+  float to_target[3], stack_dist, fob[5], hold_dur;
+};
+
+// the task step's new task state, read by the reset merge
+struct FsTaskState {
+  int stage, steps;          // BlindGrasping (steps: success duration)
+  float tis, scd;
+  bool s1c, s2c, cond;
+  float transport_dist;      // BoxStacking (steps: hold duration)
 };
 
 // lane 0's working set after the physics, in the env's LpEnv union (after
@@ -140,9 +199,10 @@ struct FsObs {
 // indexes it by runtime values
 struct FsWork {
   FsObs o;
+  FsTaskState ts;
   float r[RT_COUNT];
   bool fail[FC_COUNT];
-  bool succ[SC_COUNT];
+  bool succ[SC_COUNT > 0 ? SC_COUNT : 1];
   int sflag_new[8], fflag_new[8], contacts[8];
 };
 #define FS_WORK_FLOATS ((int)((sizeof(FsWork) + sizeof(float) - 1) / sizeof(float)))
@@ -242,6 +302,13 @@ LP_DEV int fs_put_obs(int key, const FsObs& o, const FusedConfig* c, float* obs,
     case OK_CURRENT_STAGE: PUT(o.stage); break;
     case OK_TIME_IN_STAGE: PUT(o.tis); break;
     case OK_STAGE_PROGRESS: PUT(o.progress); break;
+    case OK_OBJECT_QUAT: for (int j = 0; j < 4; ++j) PUT(o.box[3 + j]); break;
+    case OK_PLATFORM_POS: for (int j = 0; j < 3; ++j) PUT(o.box[13 + j]); break;
+    case OK_PLATFORM_QUAT: for (int j = 0; j < 4; ++j) PUT(o.box[16 + j]); break;
+    case OK_TO_STACK_TARGET: for (int j = 0; j < 3; ++j) PUT(o.to_target[j]); break;
+    case OK_STACK_DIST: PUT(o.stack_dist); break;
+    case OK_FINGERS_ON_BOX: for (int f = 0; f < 5; ++f) PUT(o.fob[f]); break;
+    case OK_HOLD_DURATION: PUT(o.hold_dur); break;
   }
 #undef PUT
   return row;
@@ -284,71 +351,27 @@ LP_DEV void fs_actions(const LaneModel* m, const FusedConfig* c, const float* ro
     full[d] = c->cscale[d] != 0.f ? t[c->csrc[d]] * c->cscale[d] : 0.f;
 }
 
-// Everything after the physics, on one lane: the default observations,
-// BlindGrasping's task step, termination, rewards, the obs/reward/mask/
-// component rows, and the done-masked reset merge into rows_f / rows_i (in
-// place: the env's staged column). s holds the state after the physics and
-// its final FK; t the active targets; mz the reset pose's lowest tip.
-LP_DEV void fs_post(const LaneModel* m, const FusedConfig* c, const LpEnv* s, const float* t,
-                    float mz, float* rows_f, int* rows_i, const float* act, float* rst,
-                    const float* drn, float* rows_c, float* obs, float* rew, int* msk,
-                    float* cmp, FsWork* wk) {
-  const int nc = c->nc;
-  const float dt = c->control_dt;
+// The task steps: task observations into o, the task's criteria into
+// fail[]/succ[], its reward terms into r[] and its new task state into ts.
+#if FS_TASK == 1
+// BlindGrasping (blind_grasping.py lane_step). bf is the box's contact
+// force; min_tip the lowest fingertip z.
+LP_DEV void fs_task_step(const FusedConfig* c, const float* rows_f, const int* rows_i,
+                         const float* bf, float min_tip, FsWork* wk) {
 #define FR(r) rows_f[(r)]
 #define IR(r) rows_i[(r)]
   FsObs& o = wk->o;
-  const float* q0 = rows_f + c->f_q;  // the staged column: read here before the merge
-  float drv_old[4];
-  const float* qd = s->qd;
-  const float* cf = s->cf;
-  const float* bf = s->bf;
-  for (int j = 0; j < c->n_act; ++j) o.acts[j] = act[j];
-  for (int j = 0; j < 18; ++j) o.t[j] = t[j];
-  for (int j = 0; j < m->nb; ++j) { o.q[j] = s->q[j]; o.full[j] = s->tgt[j]; }
-  for (int j = 0; j < 13; ++j) o.box[j] = s->box[j];
-  for (int j = 0; j < 4; ++j) drv_old[j] = FR(c->f_dr[j]);
-  const float* prev_cb = rows_f + c->f_prev_contact_binary;
-  const float* prev_fvel = rows_f + c->f_prev_finger_dof_vel;
-  const int* dur_old = rows_i + c->i_contact_duration_steps;
-  const int* prev_contacts = rows_i + c->i_prev_contacts;
-  float prev_hvel[3], prev_havel[3], init_box[3];
-  for (int j = 0; j < 3; ++j) {
-    prev_hvel[j] = FR(c->f_prev_hand_vel + j);
-    prev_havel[j] = FR(c->f_prev_hand_ang_vel + j);
-    init_box[j] = FR(c->f_initial_box_pos + j);
-  }
-  o.epi_old = IR(c->i_episode_step_count);
+  FsTaskState& ts = wk->ts;
+  bool* fail = wk->fail;
+  bool* succ = wk->succ;
+  float* r = wk->r;
+  const float dt = c->control_dt;
+  float init_box[3];
+  for (int j = 0; j < 3; ++j) init_box[j] = FR(c->f_initial_box_pos + j);
   const int stage_old = IR(c->i_current_stage);
   const int sds_old = IR(c->i_success_duration_steps);
   const float tis_old = FR(c->f_time_in_stage);
   const float scd_old = FR(c->f_stage_contact_duration);
-
-  // ---- the final FK: hand and fingertip/pad sites
-  const int hb = c->hand_b;
-  const float* hk = s->kin[hb];
-  for (int j = 0; j < 3; ++j) o.hand_pos[j] = hk[j];
-  for (int j = 0; j < 4; ++j) o.hand_quat[j] = hk[3 + j];
-  float hand_lin[3], hand_ang[3];
-  for (int j = 0; j < 3; ++j) { hand_lin[j] = hk[7 + j]; hand_ang[j] = hk[10 + j]; }
-  for (int f = 0; f < 5; ++f) {
-    lp_site(m, s->kin, c->tip_site[f], o.tip_pos[f], o.tip_quat[f]);
-    lp_site(m, s->kin, c->pad_site[f], o.pad_pos[f], o.pad_quat[f]);
-  }
-
-  // ---- default observations (prev_dof_pos == pre-physics q)
-  for (int j = 0; j < m->nb; ++j) o.dvel[j] = (o.q[j] - q0[j]) / dt;
-  for (int b = 0; b < nc; ++b) {
-    const float* f3 = &cf[3 * c->contact_body[b]];
-    for (int j = 0; j < 3; ++j) o.cfc[b][j] = f3[j];
-    o.mags[b] = sqrtf(f3[0] * f3[0] + f3[1] * f3[1] + f3[2] * f3[2]);
-    o.binary[b] = o.mags[b] > c->contact_binary_threshold ? 1.f : 0.f;
-    bool started = o.binary[b] > 0.5f && prev_cb[b] < 0.5f;
-    bool active = o.binary[b] > 0.5f;
-    o.new_dur[b] = started ? 1 : (active ? dur_old[b] + 1 : 0);
-  }
-
-  // ---- BlindGrasping task step (blind_grasping.py lane_step)
   const float* bpos = o.box;
   const float* bvel = o.box + 7;
   for (int f = 0; f < 5; ++f) {
@@ -398,72 +421,12 @@ LP_DEV void fs_post(const LaneModel* m, const FusedConfig* c, const LpEnv* s, co
   float velmag = fs_norm3(bvel, zero3);
   bool pregrasp_ok = hdiff3_ok && (centroid_dist <= c->bg_tol_c) &&
                      (drift <= c->bg_tol_drift) && (velmag <= c->bg_tol_vel);
-  bool* fail = wk->fail;
-  bool* succ = wk->succ;
   fail[FC_BOX_TOO_FAR] = o.h2o > c->bg_max_box_dist;
   fail[FC_S1_PREGRASP_FAILED] = s1c && !pregrasp_ok;
   fail[FC_S2_CONTACT_FAILED] = s2c && !grasp;
   fail[FC_S3_GRASP_LOST] = (stage == 3) && !grasp;
   succ[SC_GRASP_LIFT_SUCCESS] = steps >= c->bg_threshold_steps;
-  float min_tip = o.tip_pos[0][2];
-  for (int f = 1; f < 5; ++f) min_tip = fminf(min_tip, o.tip_pos[f][2]);
-  fail[FC_HITTING_GROUND] = c->has_height_safety &&
-      ((o.hand_pos[2] < c->handbase_threshold) || (min_tip < c->fingertip_threshold));
 
-  // ---- termination (termination.py evaluate_termination)
-  const int new_count = o.epi_old + 1;
-  bool ep_succ = false, ep_fail = false;
-  int* sflag_new = wk->sflag_new;
-  int* fflag_new = wk->fflag_new;
-  for (int j = 0; j < c->n_sflags; ++j) {
-    bool cr = succ[c->sflag_crit[j]];
-    sflag_new[j] = ((!ep_succ && cr) || IR(c->sflag_row[j]) != 0) ? 1 : 0;
-    ep_succ = ep_succ || cr;
-  }
-  for (int j = 0; j < c->n_fflags; ++j) {
-    bool cr = fail[c->fflag_crit[j]];
-    fflag_new[j] = ((!ep_fail && cr) || IR(c->fflag_row[j]) != 0) ? 1 : 0;
-    ep_fail = ep_fail || cr;
-  }
-  bool timeout = new_count >= c->max_episode_length - 1;
-  bool done = ep_succ || ep_fail || timeout;
-  bool succ_t = ep_succ && done;
-  bool fail_t = ep_fail && !ep_succ && done;
-  bool tout_t = timeout && !ep_succ && !ep_fail && done;
-  float term_reward = (succ_t ? 1.f : 0.f) * c->success_reward -
-                      (fail_t ? 1.f : 0.f) * c->failure_penalty -
-                      (tout_t ? 1.f : 0.f) * c->timeout_penalty;
-
-  // ---- rewards: common terms, task terms, weighted sum in sorted-name order
-  float* r = wk->r;
-  const float* fvel = o.dvel + 6;
-  float nf = 0.f, ndf = 0.f;
-  for (int j = 0; j < 20; ++j) {
-    float dv = fvel[j] - prev_fvel[j];
-    nf += fvel[j] * fvel[j];
-    ndf += dv * dv;
-  }
-  r[RT_ALIVE] = 1.f;
-  r[RT_HEIGHT_SAFETY] = fs_clip01(1.0f - expf(-(min_tip - 0.02f) * 20.0f));
-  r[RT_FINGER_VELOCITY] = expf(-0.1f * sqrtf(nf));
-  r[RT_HAND_VELOCITY] = expf(-0.2f * fs_norm3(hand_lin, zero3));
-  r[RT_HAND_ANGULAR_VELOCITY] = expf(-0.2f * fs_norm3(hand_ang, zero3));
-  float over = 0.f;
-  for (int j = 0; j < 20; ++j) {
-    float rng = c->finger_upper[j] - c->finger_lower[j];
-    if (rng > 0.f) over += fs_clip01(fabsf(2.0f * (o.q[6 + j] - c->finger_lower[j]) / rng - 1.0f) - 0.8f);
-  }
-  r[RT_JOINT_LIMIT] = 1.0f - over / 20.0f;
-  r[RT_FINGER_ACCELERATION] = expf(-2.0f * sqrtf(ndf));
-  r[RT_HAND_ACCELERATION] = expf(-0.5f * fs_norm3(hand_lin, prev_hvel));
-  r[RT_HAND_ANGULAR_ACCELERATION] = expf(-0.5f * fs_norm3(hand_ang, prev_havel));
-  int* contacts = wk->contacts;
-  float changes = 0.f;
-  for (int b = 0; b < nc; ++b) {
-    contacts[b] = o.mags[b] > 0.1f ? 1 : 0;
-    changes += (contacts[b] != (prev_contacts[b] != 0)) ? 1.f : 0.f;
-  }
-  r[RT_CONTACT_STABILITY] = expf(-changes);
   float s1 = stage == 1 ? 1.f : 0.f, s2 = stage == 2 ? 1.f : 0.f, s3 = stage == 3 ? 1.f : 0.f;
   float avg_h = (o.hdiff[0] + o.hdiff[1] + o.hdiff[2] + o.hdiff[3] + o.hdiff[4]) / 5.0f;
   r[RT_S1_HEIGHT_ALIGNMENT] = expf(-c->bg_d_ha * avg_h) * s1;
@@ -496,6 +459,270 @@ LP_DEV void fs_post(const LaneModel* m, const FusedConfig* c, const LpEnv* s, co
     under += (in_fp ? 1.f : 0.f) * fmaxf(c->bg_ub_margin - o.tip_pos[f][2], 0.f);
   }
   r[RT_UNDER_BOX_PENALTY] = under * (bpos[2] < c->bg_ub_ground_z ? 1.f : 0.f);
+  (void)min_tip;
+  ts.stage = stage; ts.steps = steps; ts.tis = tis; ts.scd = scd;
+  ts.s1c = s1c; ts.s2c = s2c; ts.cond = cond;
+#undef FR
+#undef IR
+}
+#elif FS_TASK == 2
+// BoxStacking (box_stacking.py lane_step): the pick cube is the box, the
+// platform the second box (o.box rows 13-25). bf is the box's contact force.
+LP_DEV void fs_task_step(const FusedConfig* c, const float* rows_f, const int* rows_i,
+                         const float* bf, float min_tip, FsWork* wk) {
+  FsObs& o = wk->o;
+  bool* fail = wk->fail;
+  float* r = wk->r;
+  const float dt = c->control_dt;
+  const float* bpos = o.box;
+  const float* bvel = o.box + 7;
+  const float* ppos = o.box + 13;
+  const float sd = rows_f[c->f_spawn_difficulty];
+  const float spawn_x = rows_f[c->f_platform_spawn_xy], spawn_y = rows_f[c->f_platform_spawn_xy + 1];
+  const float target[3] = {ppos[0], ppos[1], ppos[2] + c->bs_stack_dz};
+  for (int j = 0; j < 3; ++j) o.to_target[j] = target[j] - bpos[j];
+  const float* tt = o.to_target;
+  const float transport_dist = sqrtf(tt[0] * tt[0] + tt[1] * tt[1] + tt[2] * tt[2]);
+  const float xy_err = sqrtf(tt[0] * tt[0] + tt[1] * tt[1]);
+  const float z_err = fabsf(tt[2]);
+  const float speed = sqrtf(bvel[0] * bvel[0] + bvel[1] * bvel[1] + bvel[2] * bvel[2]);
+  o.stack_dist = transport_dist;
+  for (int f = 0; f < 5; ++f) o.d_f2o[f] = fs_norm3(o.pad_pos[f], bpos);
+  // finger-box contact (tasks/api.py detect_finger_box_contacts)
+  const bool box_has = sqrtf(bf[0] * bf[0] + bf[1] * bf[1] + bf[2] * bf[2]) > c->bs_contact_thr;
+  int n_on_i = 0;
+  for (int f = 0; f < 5; ++f) {
+    bool fb = (o.binary[f] > 0.5f) && box_has && (o.d_f2o[f] < c->bs_prox_thr);
+    o.fob[f] = fb ? 1.f : 0.f;
+    n_on_i += fb ? 1 : 0;
+  }
+  const float n_on = (float)n_on_i;
+  // the bridge anneal: 1 at difficulty 0 -> 0 at release_anneal_end
+  const float bridge = c->bs_release_end > 0.f ? fs_clip01(1.0f - sd / c->bs_release_end) : 0.f;
+  const float relax = 1.0f + (c->bs_tol_relax - 1.0f) * bridge;
+  const bool at_pose = (xy_err < c->bs_pos_tol * relax) && (z_err < c->bs_height_tol * relax);
+  const int allowed = (int)floorf(3.0f * bridge + 1e-6f);
+  const bool stacked = at_pose && (speed < c->bs_rest_speed) && (n_on_i <= allowed);
+  const int steps = stacked ? rows_i[c->i_hold_duration_steps] + 1 : 0;
+  o.hold_dur = (float)steps * dt;
+  const float hold_secs = c->bs_hold_thr - (c->bs_hold_thr - c->bs_hold_min) * bridge;
+  wk->succ[SC_STACK_SUCCESS] = steps >= (int)rintf(hold_secs / dt);
+  const float mx = ppos[0] - spawn_x, my = ppos[1] - spawn_y;
+  const float plat_moved = sqrtf(mx * mx + my * my);
+  fail[FC_BOX_TOO_FAR] = sqrtf(bpos[0] * bpos[0] + bpos[1] * bpos[1]) > c->bs_box_far;
+  fail[FC_PLATFORM_MOVED] = plat_moved > c->bs_move_tol * relax;
+  if (c->bs_hg_override) {
+    // the task's hitting_ground: each tip's limit relaxes by the bridged
+    // margin, and by the pocket margin while the cube and the tip are in
+    // the pocket around the stack point
+    const bool cube_in_pocket = transport_dist < c->bs_pocket_radius;
+    const float pocket_bridge =
+        c->bs_pocket_end > 0.f ? fs_clip01(1.0f - sd / c->bs_pocket_end) : 0.f;
+    bool tip_violation = false;
+    for (int f = 0; f < 5; ++f) {
+      const float* tp = o.tip_pos[f];
+      const float dx = tp[0] - target[0], dy = tp[1] - target[1];
+      const float tip_xy = sqrtf(dx * dx + dy * dy);
+      const float mg = c->bs_tip_bridge_margin * bridge +
+          ((cube_in_pocket && tip_xy < c->bs_pocket_radius) ? c->bs_pocket_margin * pocket_bridge
+                                                             : 0.f);
+      tip_violation = tip_violation || (tp[2] < c->bs_fingertip_thr - mg);
+    }
+    fail[FC_HITTING_GROUND] = (o.hand_pos[2] < c->bs_handbase_thr) || tip_violation;
+  }
+  float dmin = o.d_f2o[0];
+  for (int f = 1; f < 5; ++f) dmin = fminf(dmin, o.d_f2o[f]);
+  r[RT_FINGERPAD_PROXIMITY] = expf(-c->bs_d_prox * dmin);
+  r[RT_FINGER_CONTACT] = fminf(n_on, 3.0f) / 3.0f;
+  const bool carrying = (n_on_i >= 2) && (bpos[2] > c->bs_lift_z) && !at_pose;
+  r[RT_LIFT] = carrying ? 1.f : 0.f;
+  r[RT_TRANSPORT] = (carrying ? 1.f : 0.f) * expf(-c->bs_d_transport * transport_dist);
+  r[RT_TRANSPORT_DELTA] = rows_f[c->f_prev_transport_dist] - transport_dist;
+  r[RT_PLACE] = expf(-c->bs_d_place * (xy_err + z_err));
+  r[RT_STACKED_HOLD] = stacked ? 1.f : 0.f;
+  r[RT_RELEASE] = (at_pose ? 1.f : 0.f) * (1.0f - fminf(n_on, 3.0f) / 3.0f);
+  float under = 0.f;
+  for (int f = 0; f < 5; ++f) {
+    const float* tp = o.tip_pos[f];
+    const bool in_fp = (fabsf(tp[0] - bpos[0]) < c->bs_ub_half) &&
+                       (fabsf(tp[1] - bpos[1]) < c->bs_ub_half);
+    under = under + (in_fp ? 1.f : 0.f) * fmaxf(c->bs_ub_margin - tp[2], 0.f);
+  }
+  r[RT_UNDER_BOX_PENALTY] = under * (bpos[2] < c->bs_ub_ground_z ? 1.f : 0.f);
+  r[RT_PLATFORM_DRIFT_PENALTY] = fmaxf(plat_moved - c->bs_drift_free, 0.f) * (1.0f - bridge);
+  wk->ts.steps = steps;
+  wk->ts.transport_dist = transport_dist;
+  (void)min_tip;
+}
+#else
+// BaseTask: no task step.
+LP_DEV void fs_task_step(const FusedConfig* c, const float* rows_f, const int* rows_i,
+                         const float* bf, float min_tip, FsWork* wk) {
+  (void)c; (void)rows_f; (void)rows_i; (void)bf; (void)min_tip; (void)wk;
+}
+#endif
+
+// The task's share of the done-masked reset merge: its task-state rows.
+LP_DEV void fs_task_merge(const LaneModel* m, const FusedConfig* c, bool done,
+                          const FsTaskState& ts, const float* rst, float* rows_f, int* rows_i) {
+#define FR(r) rows_f[(r)]
+#define IR(r) rows_i[(r)]
+#if FS_TASK == 1
+  for (int j = 0; j < 3; ++j)  // the initial box position is the reset box's
+    FR(c->f_initial_box_pos + j) = done ? rst[m->nb + j] : FR(c->f_initial_box_pos + j);
+  FR(c->f_time_in_stage) = done ? 0.f : ts.tis;
+  FR(c->f_stage_contact_duration) = done ? 0.f : ts.scd;
+  IR(c->i_current_stage) = done ? 1 : ts.stage;
+  IR(c->i_just_t2) = done ? 0 : (int)ts.s1c;
+  IR(c->i_just_t3) = done ? 0 : (int)ts.s2c;
+  IR(c->i_success_conditions_met) = done ? 0 : (int)ts.cond;
+  IR(c->i_success_duration_steps) = done ? 0 : ts.steps;
+#elif FS_TASK == 2
+  // every task state comes from the sampled reset rows
+  for (int j = 0; j < 2; ++j)
+    FR(c->f_platform_spawn_xy + j) = done ? rst[c->r_platform_spawn_xy + j]
+                                          : FR(c->f_platform_spawn_xy + j);
+  FR(c->f_prev_transport_dist) = done ? rst[c->r_prev_transport_dist] : ts.transport_dist;
+  FR(c->f_spawn_difficulty) = done ? rst[c->r_spawn_difficulty] : FR(c->f_spawn_difficulty);
+  IR(c->i_hold_duration_steps) = done ? (int)rst[c->r_hold_duration_steps] : ts.steps;
+#else
+  (void)m; (void)c; (void)done; (void)ts; (void)rst; (void)rows_f; (void)rows_i;
+#endif
+#undef FR
+#undef IR
+}
+
+// Everything after the physics, on one lane: the default observations, the
+// task's step, termination, rewards, the obs/reward/mask/component rows, and
+// the done-masked reset merge into rows_f / rows_i (in place: the env's
+// staged column). s holds the state after the physics and its final FK; t
+// the active targets; mz the reset pose's lowest tip.
+LP_DEV void fs_post(const LaneModel* m, const FusedConfig* c, const LpEnv* s, const float* t,
+                    float mz, float* rows_f, int* rows_i, const float* act, float* rst,
+                    const float* drn, float* rows_c, float* obs, float* rew, int* msk,
+                    float* cmp, FsWork* wk) {
+  const int nc = c->nc;
+  const float dt = c->control_dt;
+#define FR(r) rows_f[(r)]
+#define IR(r) rows_i[(r)]
+  FsObs& o = wk->o;
+  const float* q0 = rows_f + c->f_q;  // the staged column: read here before the merge
+  float drv_old[4];
+  const float* qd = s->qd;
+  const float* cf = s->cf;
+  const float* bf = s->bf;
+  for (int j = 0; j < c->n_act; ++j) o.acts[j] = act[j];
+  for (int j = 0; j < 18; ++j) o.t[j] = t[j];
+  for (int j = 0; j < m->nb; ++j) { o.q[j] = s->q[j]; o.full[j] = s->tgt[j]; }
+  for (int j = 0; j < LP_BOX_ROWS; ++j) o.box[j] = s->box[j];
+  for (int j = 0; j < 4; ++j) drv_old[j] = FR(c->f_dr[j]);
+  const float* prev_cb = rows_f + c->f_prev_contact_binary;
+  const float* prev_fvel = rows_f + c->f_prev_finger_dof_vel;
+  const int* dur_old = rows_i + c->i_contact_duration_steps;
+  const int* prev_contacts = rows_i + c->i_prev_contacts;
+  float prev_hvel[3], prev_havel[3];
+  for (int j = 0; j < 3; ++j) {
+    prev_hvel[j] = FR(c->f_prev_hand_vel + j);
+    prev_havel[j] = FR(c->f_prev_hand_ang_vel + j);
+  }
+  o.epi_old = IR(c->i_episode_step_count);
+
+  // ---- the final FK: hand and fingertip/pad sites
+  const int hb = c->hand_b;
+  const float* hk = s->kin[hb];
+  for (int j = 0; j < 3; ++j) o.hand_pos[j] = hk[j];
+  for (int j = 0; j < 4; ++j) o.hand_quat[j] = hk[3 + j];
+  float hand_lin[3], hand_ang[3];
+  for (int j = 0; j < 3; ++j) { hand_lin[j] = hk[7 + j]; hand_ang[j] = hk[10 + j]; }
+  for (int f = 0; f < 5; ++f) {
+    lp_site(m, s->kin, c->tip_site[f], o.tip_pos[f], o.tip_quat[f]);
+    lp_site(m, s->kin, c->pad_site[f], o.pad_pos[f], o.pad_quat[f]);
+  }
+
+  // ---- default observations (prev_dof_pos == pre-physics q)
+  for (int j = 0; j < m->nb; ++j) o.dvel[j] = (o.q[j] - q0[j]) / dt;
+  for (int b = 0; b < nc; ++b) {
+    const float* f3 = &cf[3 * c->contact_body[b]];
+    for (int j = 0; j < 3; ++j) o.cfc[b][j] = f3[j];
+    o.mags[b] = sqrtf(f3[0] * f3[0] + f3[1] * f3[1] + f3[2] * f3[2]);
+    o.binary[b] = o.mags[b] > c->contact_binary_threshold ? 1.f : 0.f;
+    bool started = o.binary[b] > 0.5f && prev_cb[b] < 0.5f;
+    bool active = o.binary[b] > 0.5f;
+    o.new_dur[b] = started ? 1 : (active ? dur_old[b] + 1 : 0);
+  }
+
+  // ---- the task's step, then the builtin hitting-ground check unless the
+  // task gave its own
+  bool* fail = wk->fail;
+  bool* succ = wk->succ;
+  float min_tip = o.tip_pos[0][2];
+  for (int f = 1; f < 5; ++f) min_tip = fminf(min_tip, o.tip_pos[f][2]);
+  fs_task_step(c, rows_f, rows_i, bf, min_tip, wk);
+#if FS_TASK == 2
+  const bool task_hg = c->bs_hg_override != 0;
+#else
+  const bool task_hg = false;
+#endif
+  if (!task_hg)
+    fail[FC_HITTING_GROUND] = c->has_height_safety &&
+        ((o.hand_pos[2] < c->handbase_threshold) || (min_tip < c->fingertip_threshold));
+
+  // ---- termination (termination.py evaluate_termination)
+  const int new_count = o.epi_old + 1;
+  bool ep_succ = false, ep_fail = false;
+  int* sflag_new = wk->sflag_new;
+  int* fflag_new = wk->fflag_new;
+  for (int j = 0; j < c->n_sflags; ++j) {
+    bool cr = succ[c->sflag_crit[j]];
+    sflag_new[j] = ((!ep_succ && cr) || IR(c->sflag_row[j]) != 0) ? 1 : 0;
+    ep_succ = ep_succ || cr;
+  }
+  for (int j = 0; j < c->n_fflags; ++j) {
+    bool cr = fail[c->fflag_crit[j]];
+    fflag_new[j] = ((!ep_fail && cr) || IR(c->fflag_row[j]) != 0) ? 1 : 0;
+    ep_fail = ep_fail || cr;
+  }
+  bool timeout = new_count >= c->max_episode_length - 1;
+  bool done = ep_succ || ep_fail || timeout;
+  bool succ_t = ep_succ && done;
+  bool fail_t = ep_fail && !ep_succ && done;
+  bool tout_t = timeout && !ep_succ && !ep_fail && done;
+  float term_reward = (succ_t ? 1.f : 0.f) * c->success_reward -
+                      (fail_t ? 1.f : 0.f) * c->failure_penalty -
+                      (tout_t ? 1.f : 0.f) * c->timeout_penalty;
+
+  // ---- rewards: common terms (the task's are in), weighted sum in
+  // sorted-name order
+  float* r = wk->r;
+  const float zero3[3] = {0.f, 0.f, 0.f};
+  const float* fvel = o.dvel + 6;
+  float nf = 0.f, ndf = 0.f;
+  for (int j = 0; j < 20; ++j) {
+    float dv = fvel[j] - prev_fvel[j];
+    nf += fvel[j] * fvel[j];
+    ndf += dv * dv;
+  }
+  r[RT_ALIVE] = 1.f;
+  r[RT_HEIGHT_SAFETY] = fs_clip01(1.0f - expf(-(min_tip - 0.02f) * 20.0f));
+  r[RT_FINGER_VELOCITY] = expf(-0.1f * sqrtf(nf));
+  r[RT_HAND_VELOCITY] = expf(-0.2f * fs_norm3(hand_lin, zero3));
+  r[RT_HAND_ANGULAR_VELOCITY] = expf(-0.2f * fs_norm3(hand_ang, zero3));
+  float over = 0.f;
+  for (int j = 0; j < 20; ++j) {
+    float rng = c->finger_upper[j] - c->finger_lower[j];
+    if (rng > 0.f) over += fs_clip01(fabsf(2.0f * (o.q[6 + j] - c->finger_lower[j]) / rng - 1.0f) - 0.8f);
+  }
+  r[RT_JOINT_LIMIT] = 1.0f - over / 20.0f;
+  r[RT_FINGER_ACCELERATION] = expf(-2.0f * sqrtf(ndf));
+  r[RT_HAND_ACCELERATION] = expf(-0.5f * fs_norm3(hand_lin, prev_hvel));
+  r[RT_HAND_ANGULAR_ACCELERATION] = expf(-0.5f * fs_norm3(hand_ang, prev_havel));
+  int* contacts = wk->contacts;
+  float changes = 0.f;
+  for (int b = 0; b < nc; ++b) {
+    contacts[b] = o.mags[b] > 0.1f ? 1 : 0;
+    changes += (contacts[b] != (prev_contacts[b] != 0)) ? 1.f : 0.f;
+  }
+  r[RT_CONTACT_STABILITY] = expf(-changes);
   float total = 0.f;
   for (int j = 0; j < c->n_rew; ++j) total += r[c->rew_term[j]] * c->rew_w[j];
 
@@ -548,12 +775,21 @@ LP_DEV void fs_post(const LaneModel* m, const FusedConfig* c, const LpEnv* s, co
     FR(c->f_box_angvel + j) = done ? 0.f : o.box[10 + j];
     FR(c->f_prev_hand_vel + j) = done ? 0.f : hand_lin[j];
     FR(c->f_prev_hand_ang_vel + j) = done ? 0.f : hand_ang[j];
-    FR(c->f_initial_box_pos + j) = done ? rbpos[j] : init_box[j];
   }
   for (int j = 0; j < 4; ++j) {
     FR(c->f_box_quat + j) = done ? rbquat[j] : o.box[3 + j];
     FR(c->f_dr[j]) = done ? drn[j] : drv_old[j];
   }
+#if LP_HAS_BOX2
+  // the platform cube: its reset pose follows the box's in the reset rows
+  const float* rb2 = rst + m->nb + 7;
+  for (int j = 0; j < 3; ++j) {
+    FR(c->f_box2_pos + j) = done ? rb2[j] : o.box[13 + j];
+    FR(c->f_box2_linvel + j) = done ? 0.f : o.box[20 + j];
+    FR(c->f_box2_angvel + j) = done ? 0.f : o.box[23 + j];
+  }
+  for (int j = 0; j < 4; ++j) FR(c->f_box2_quat + j) = done ? rb2[3 + j] : o.box[16 + j];
+#endif
   for (int j = 0; j < 18; ++j) FR(c->f_active_prev_targets + j) = done ? rdof[c->act_idx[j]] : o.t[j];
   for (int j = 0; j < c->n_act; ++j) FR(c->f_prev_actions + j) = done ? 0.f : o.acts[j];
   for (int b = 0; b < nc; ++b) {
@@ -565,13 +801,7 @@ LP_DEV void fs_post(const LaneModel* m, const FusedConfig* c, const LpEnv* s, co
   IR(c->i_episode_step_count) = done ? 0 : new_count;
   for (int j = 0; j < c->n_sflags; ++j) IR(c->sflag_row[j]) = done ? 0 : sflag_new[j];
   for (int j = 0; j < c->n_fflags; ++j) IR(c->fflag_row[j]) = done ? 0 : fflag_new[j];
-  FR(c->f_time_in_stage) = done ? 0.f : tis;
-  FR(c->f_stage_contact_duration) = done ? 0.f : scd;
-  IR(c->i_current_stage) = done ? 1 : stage;
-  IR(c->i_just_t2) = done ? 0 : (int)s1c;
-  IR(c->i_just_t3) = done ? 0 : (int)s2c;
-  IR(c->i_success_conditions_met) = done ? 0 : (int)cond;
-  IR(c->i_success_duration_steps) = done ? 0 : steps;
+  fs_task_merge(m, c, done, wk->ts, rst, rows_f, rows_i);
 #undef FR
 #undef IR
 }
@@ -579,8 +809,16 @@ LP_DEV void fs_post(const LaneModel* m, const FusedConfig* c, const LpEnv* s, co
 // One env's slot: the lane physics, its staged column (rows_f | rows_i |
 // actions | reset rows | DR | spawn), the active targets and the reset
 // pose's lowest tip. The output rows (rows_c | obs | reward | masks |
-// components) are assembled in the LpEnv union after the physics.
+// components) are assembled in the LpEnv union after the physics. The
+// column's words per build: BlindGrasping's 231 (its cap of 240 kept), BaseTask's
+// 206 and BoxStacking's 239 with room for up to 8 contact bodies.
+#if FS_TASK == 1
 #define FS_IN_CAP 240
+#elif FS_TASK == 2
+#define FS_IN_CAP 248
+#else
+#define FS_IN_CAP 224
+#endif
 struct FsEnv {
   LpEnv lp;
   float in[FS_IN_CAP];
@@ -610,6 +848,20 @@ LP_DEV FsRows fs_rows(const FusedConfig* c) {
   return r;
 }
 
+// Lanes 0-3: the second box's carried rows into the lane physics' state.
+LP_DEV void fs_load_box2(const FusedConfig* c, const float* rf, LpEnv* s, int lane) {
+#if LP_HAS_BOX2
+  if (lane < 3) {
+    s->box[13 + lane] = rf[c->f_box2_pos + lane];
+    s->box[20 + lane] = rf[c->f_box2_linvel + lane];
+    s->box[23 + lane] = rf[c->f_box2_angvel + lane];
+  }
+  if (lane < 4) s->box[16 + lane] = rf[c->f_box2_quat + lane];
+#else
+  (void)c; (void)rf; (void)s; (void)lane;
+#endif
+}
+
 // One env's step (half-warp): the action pipeline and the state on lane 0 and
 // the lanes, the physics, the final FK, the spawn projection of the reset
 // pose (for every env: whether it resets is known only after the task step;
@@ -626,7 +878,8 @@ LP_DEV void fs_env(const LaneModel* m, const FusedConfig* c, FsEnv* f, LpLane* L
             s->box[10 + lane] = rf[c->f_box_angvel + lane];
             s->spawn[lane] = rf[o.spw + lane];
           }
-          if (lane < 4) { s->box[3 + lane] = rf[c->f_box_quat + lane]; s->drv[lane] = rf[c->f_dr[lane]]; });
+          if (lane < 4) { s->box[3 + lane] = rf[c->f_box_quat + lane]; s->drv[lane] = rf[c->f_dr[lane]]; }
+          fs_load_box2(c, rf, s, lane););
   for (int it = 0; it < m->total_substeps; ++it) lp_substep(m, s, Ls);
   lp_fk(m, s->q, s->qd, s->spawn, s->kin, (float (*)[6])0, Ls);
   float* u = (float*)&s->u;
@@ -706,10 +959,11 @@ int lane_model_layout(LP_LAYOUT_ARGS) {
 }
 
 // The lane kernel's static sizes the model buffer must respect: mass-matrix
-// entries and lanes per env.
-int lane_caps(int* max_m, int* lanes_per_env) {
+// entries and lanes per env; and whether this build carries the second box.
+int lane_caps(int* max_m, int* lanes_per_env, int* has_box2) {
   *max_m = LP_MAXM;
   *lanes_per_env = LP_W;
+  *has_box2 = LP_HAS_BOX2;
   return 0;
 }
 

@@ -17,7 +17,8 @@
 // Design: a half-warp (LP_W = 16 lanes) per env, two envs per warp, LP_ENVS
 // envs per block. Each lane owns up to two of the 26 bodies (its slots,
 // LaneModel.slot_body: each tree level in one slot, so a level phase runs
-// one slot); lane 15 also owns the box. What another lane must read lives in
+// one slot); lane 15 also owns the box, and in the two-cube build
+// (LP_HAS_BOX2, a separate library) lane 14 owns the second box. What another lane must read lives in
 // the env's slice of shared memory (LpEnv); what only the owner reads lives
 // in that lane's registers (LpLane). Each substep is a fixed sequence of
 // phases separated by __syncwarp(); within a phase a lane writes only
@@ -27,11 +28,18 @@
 //      every lane first takes sin/cos of its bodies' half angles.
 //   2. Sphere poses and velocities and the box-contact flags, lanes over the
 //      39 spheres; then the forces, lanes over spheres (ground + box), the
-//      40 finger pairs and the 8 box corners, each into its own slot.
+//      40 finger pairs and the 8 box corners, each into its own slot. The
+//      two-cube build adds the second box's sphere flags and forces (its own
+//      share count), its 8 corners vs the ground, and the 2 x 8 cube-cube
+//      corners (each cube's corners against the other, flags first: each
+//      direction has its own share count), each into its own slot.
 //   3. Each body sums its own contacts (LaneModel.bc: its spheres, then its
-//      pairs, in index order, as the lane kernel does), adds gravity and
-//      forms its CRBA terms; the box lane sums the box's contact wrench
-//      (spheres, then corners, in index order) and integrates the box.
+//      pairs, then its spheres against the second box, in index order, as
+//      the lane kernel does), adds gravity and forms its CRBA terms; the box
+//      lane sums the box's contact wrench (spheres, then corners, then the
+//      cube-cube terms) and integrates the box, the second box's lane the
+//      same for its box. Neither box is read by the other lane here: the
+//      cube-cube slots of phase 2 hold all either needs.
 //   4. Subtree sums of the wrenches and of T/K, one phase per level, deepest
 //      first; each body adds its children in descending index (the lane
 //      kernel's order: children after their own subtrees, i descending).
@@ -58,7 +66,8 @@
 // reads, shared loads, one rsqrt) must be hidden by the other resident
 // env-warps: 32 envs (16 warps) per SM, the limit of both shared memory
 // (LpEnv ~6 KB per env) and registers (<= 128 per thread), so 4096 envs run
-// in one wave on 132 SMs.
+// in one wave on 132 SMs. The two-cube build's slot is larger (the second
+// box's contact slots): it holds fewer envs per SM (LP_MIN_BLOCKS 3).
 //
 // The file also compiles as plain C++ (no __CUDACC__): each phase is a
 // function run once per lane, and the host build loops over the lanes where
@@ -77,14 +86,23 @@
 #define LP_RSQRT(x) (1.0f / sqrtf(x))
 #endif
 
+#ifndef LP_HAS_BOX2
+#define LP_HAS_BOX2 0  // 1: the build with the second free box (SimParams.has_box2)
+#endif
 #define LP_W 16        // lanes per env (a half-warp)
 #define LP_SLOTS 2     // bodies per lane (LaneModel.slot_body)
-#define LP_BOX_LANE (LP_W - 1)  // the lane that also owns the box
+#define LP_BOX_LANE (LP_W - 1)   // the lane that also owns the box
+#define LP_BOX2_LANE (LP_W - 2)  // the lane that also owns the second box
 #define LP_ENVS 8      // envs per block (4 warps)
 #define LP_THREADS (LP_ENVS * LP_W)
 // K1's and K2's blocks resident per SM, at least: 4 x 8 = 32 envs, which
-// caps the registers per thread at 65536 / (4 x 128) = 128
+// caps the registers per thread at 65536 / (4 x 128) = 128; the two-cube
+// build 3 x 8 = 24 envs (170 registers)
+#if LP_HAS_BOX2
+#define LP_MIN_BLOCKS 3
+#else
 #define LP_MIN_BLOCKS 4
+#endif
 // the design's shared memory per env: an SM's 228 KB over LP_MIN_BLOCKS
 // blocks of LP_ENVS envs, less the 1 KB the card reserves per block
 #define LP_SHARED_BUDGET ((233472 / LP_MIN_BLOCKS - 1024) / LP_ENVS)
@@ -95,15 +113,19 @@
 #define LP_MAXSC 40    // pruned self-collision pairs
 #define LP_MAXSITE 16  // sites
 #define LP_MAXCH 8     // children per body
-#define LP_MAXBC 32    // contacts per body (its spheres and its pairs)
+#define LP_MAXBC (LP_HAS_BOX2 ? 48 : 32)  // contacts per body (its spheres, its pairs[, its spheres vs the second box])
 #define LP_KIN 13      // per body: pos3 quat4 lin3 ang3
+#define LP_BOX_ROWS (LP_HAS_BOX2 ? 26 : 13)  // box state rows (pos3 quat4 lin3 ang3 per box)
+#define LP_BF_ROWS (LP_HAS_BOX2 ? 6 : 3)     // box contact-force rows
+#define LP_MAXS2 (LP_HAS_BOX2 ? LP_MAXS : 0)  // sphere-vs-second-box force slots
 #define LP_TRI (LP_MAXD * (LP_MAXD - 1) / 2)  // LTL updates per step, at most
 #define LP_TRI_ROUNDS 3  // LTL updates per lane held in registers at once
 
 // X-macro field list: the struct below and the layout table the wrapper
 // builds its numpy record from (lane_model_layout), so the layout is written
 // down here only. S = scalar, A = array. Every field is 4 bytes wide.
-// bc entries: force slot (spheres 0..ns-1, then pairs) | arm sphere << 8 |
+// bc entries: force slot (spheres 0..ns-1, then pairs, then the spheres
+// against the second box) | arm sphere << 8 |
 // 1 << 16 where the force acts with a minus sign (a pair's second body).
 // slot_body[k * LP_W + lane]: the lane's body in slot k, or -1; each tree
 // level lies in one slot where it fits. ltl[kk * LP_TRI + e], for the e-th
@@ -117,6 +139,8 @@
   S(float, d_contact) S(float, k_friction) S(float, beta_inv_h)              \
   S(float, max_depen) S(float, mu_hg) S(float, mu_hb) S(float, mu_bg)        \
   S(float, mu_hh) S(float, box_mass) S(float, box_inertia) S(float, half)    \
+  S(int, has_box2) S(float, mu_hb2) S(float, mu_b2g) S(float, mu_bb)         \
+  S(float, box2_mass) S(float, box2_inertia) S(float, half2)                 \
   A(int, parent, LP_MAXB) A(int, is_prism, LP_MAXB)                          \
   A(int, has_post, LP_MAXB) A(int, depth, LP_MAXB)                           \
   A(int, anc, LP_MAXB * LP_MAXD) A(int, moff, LP_MAXB)                       \
@@ -232,9 +256,18 @@ LP_DEV void lp_sub3(float* a, const float* b) { a[0] -= b[0]; a[1] -= b[1]; a[2]
 // Per substep, the contact phases (dead once each body has summed its own).
 struct LpContactBuf {
   float sp[LP_MAXS][3], sv[LP_MAXS][3];  // sphere world position, velocity
-  float F[LP_MAXS + LP_MAXSC][3];        // hand-side force: spheres (ground + box), pairs
+  // hand-side force: spheres (ground + box), pairs, spheres vs the second box
+  float F[LP_MAXS + LP_MAXSC + LP_MAXS2][3];
   float BW[LP_MAXS + 8][6];              // box-side force, torque: spheres, corners
   float act[LP_MAXS];                    // 1 where the sphere touches the box
+#if LP_HAS_BOX2
+  float BW2[LP_MAXS + 8][6];  // the second box's side: spheres, corners
+  // cube-cube corner c (0-7: the box's corners in the second box, 8-15 the
+  // second box's in the box): the force on the corner's cube, its torque
+  // about that cube, and the force's torque about the other cube
+  float BB[16][9];
+  float act2[LP_MAXS], actbb[16];  // the second box's sphere flags; the corners' flags
+#endif
 };
 
 // Per substep, after the contact phases: the subtree sums, the sparse mass
@@ -249,11 +282,14 @@ struct LpTreeBuf {
 // One env's slice of shared memory: what crosses lanes.
 struct LpEnv {
   float q[LP_MAXB], qd[LP_MAXB], tgt[LP_MAXB];
-  float box[13], spawn[3], drv[4];
-  float cf[LP_MAXB * 3], bf[3];  // the last substep's contact forces
+  float box[LP_BOX_ROWS], spawn[3], drv[4];
+  float cf[LP_MAXB * 3], bf[LP_BF_ROWS];  // the last substep's contact forces
   float kin[LP_MAXB][LP_KIN];    // FK: pos3 quat4 lin3 ang3
   float S[LP_MAXB][6];           // motion subspace (ang3, lin3)
   float Rb[9];                   // the box's rotation
+#if LP_HAS_BOX2
+  float Rb2[9];                  // the second box's rotation
+#endif
   union {
     LpContactBuf c;
     LpTreeBuf t;
@@ -452,21 +488,163 @@ struct LpBoxGeo {
   float loc[3], cl[3], d[3], gap[3], dist;
 };
 
-LP_DEV float lp_box_geo(const LaneModel* m, const float* R, const float* bpos,
-                        const float* sp, float r, LpBoxGeo* g) {
+LP_DEV float lp_box_geo(float half, const float* R, const float* bpos, const float* sp,
+                        float r, LpBoxGeo* g) {
   float rel[3] = {sp[0] - bpos[0], sp[1] - bpos[1], sp[2] - bpos[2]};
   lp_matTvec(R, rel, g->loc);
   for (int c = 0; c < 3; ++c) {
-    g->cl[c] = fminf(fmaxf(g->loc[c], -m->half), m->half);
+    g->cl[c] = fminf(fmaxf(g->loc[c], -half), half);
     g->d[c] = g->loc[c] - g->cl[c];
-    g->gap[c] = m->half - fabsf(g->loc[c]);
+    g->gap[c] = half - fabsf(g->loc[c]);
   }
   g->dist = sqrtf(lp_dot(g->d, g->d) + 1e-18f);
   float gap_min = fminf(fminf(g->gap[0], g->gap[1]), g->gap[2]);
   return g->dist > 1e-9f ? r - g->dist : r + gap_min;
 }
 
+// Sphere s (world position sp, velocity sv, radius r, apparent mass meff)
+// vs one cube (rotation R, state b = pos3 quat4 lin3 ang3, half-size half):
+// the force on the sphere into fb, the cube's side (force, torque about its
+// center) into bw (pallas_step.py, the sphere-vs-box pass). The second box's
+// pass; lp_forces_phase writes the first box's out.
+LP_DEV void lp_sphere_box(const LaneModel* m, const float* R, const float* b, float half,
+                          const float* sp, const float* sv, float r, float meff,
+                          float share_bm, float inv_in, float mu, float* fb, float* bw) {
+  const float* blin = b + 7;
+  const float* bang = b + 10;
+  LpBoxGeo g;
+  lp_box_geo(half, R, b, sp, r, &g);
+  bool outside = g.dist > 1e-9f;
+  bool m01 = g.gap[0] < g.gap[1];
+  bool m2 = (m01 ? g.gap[0] : g.gap[1]) < g.gap[2];
+  bool sel0 = m01 && m2, sel1 = !m01 && m2, sel2 = !m2;
+  float nl[3], surf[3], nw[3], r_c[3], t[3], rel[3];
+  float inv = 1.0f / (g.dist + 1e-9f);
+  if (outside) {
+    for (int c = 0; c < 3; ++c) { nl[c] = g.d[c] * inv; surf[c] = g.cl[c]; }
+  } else {
+    nl[0] = sel0 ? (g.loc[0] >= 0.f ? 1.f : -1.f) : 0.f;
+    nl[1] = sel1 ? (g.loc[1] >= 0.f ? 1.f : -1.f) : 0.f;
+    nl[2] = sel2 ? (g.loc[2] >= 0.f ? 1.f : -1.f) : 0.f;
+    for (int c = 0; c < 3; ++c) surf[c] = g.loc[c];
+  }
+  float depth_b = outside ? r - g.dist
+                          : r + (sel0 ? g.gap[0] : (sel1 ? g.gap[1] : g.gap[2]));
+  lp_matvec(R, nl, nw);
+  lp_matvec(R, surf, r_c);
+  lp_cross(bang, r_c, t);
+  for (int c = 0; c < 3; ++c) rel[c] = sv[c] - (blin[c] + t[c]);
+  rel[2] = rel[2] - m->gz * m->h;  // the box's gravity kick (rel = sphere - box)
+  float rxn[3];
+  lp_cross(r_c, nw, rxn);
+  float ang_n = lp_dot(rxn, rxn) * inv_in;
+  float m_red_n = 1.0f / (1.0f / meff + share_bm + ang_n);
+  float vn_p = lp_dot(rel, nw);
+  float vt_p[3];
+  for (int c = 0; c < 3; ++c) vt_p[c] = rel[c] - nw[c] * vn_p;
+  float vt_p_n = sqrtf(lp_dot(vt_p, vt_p) + 1e-18f);
+  float it = 1.0f / (vt_p_n + 1e-9f);
+  float t_hat[3] = {vt_p[0] * it, vt_p[1] * it, vt_p[2] * it};
+  float rxt[3];
+  lp_cross(r_c, t_hat, rxt);
+  float ang_t = lp_dot(rxt, rxt) * inv_in;
+  float m_red_t = 1.0f / (1.0f / meff + share_bm + ang_t);
+  lp_contact_force(m, depth_b, nw, rel, mu, m_red_n, m_red_t, fb);
+  for (int c = 0; c < 3; ++c) bw[c] = -fb[c];
+  lp_cross(r_c, bw, bw + 3);
+}
+
+// Corner c8 of one cube (rotation R, state b, half-size half) vs the ground:
+// the cube's force and torque into bw.
+LP_DEV void lp_corner_ground(const LaneModel* m, const float* R, const float* b, float half,
+                             int c8, float inv_mass, float inv_in, float mu, float* bw) {
+  const float up[3] = {0.f, 0.f, 1.f};
+  const float* blin = b + 7;
+  const float* bang = b + 10;
+  float cl[3] = {(c8 & 4) ? half : -half, (c8 & 2) ? half : -half, (c8 & 1) ? half : -half};
+  float cw[3], r_c[3], t[3], vc[3];
+  lp_matvec(R, cl, t);
+  for (int c = 0; c < 3; ++c) { cw[c] = b[c] + t[c]; r_c[c] = cw[c] - b[c]; }
+  float cwz = cw[2];
+  lp_cross(bang, r_c, t);
+  for (int c = 0; c < 3; ++c) vc[c] = blin[c] + t[c];
+  vc[2] = vc[2] + m->gz * m->h;  // the box is the first body here: its kick adds
+  lp_cross(r_c, up, t);
+  float ang8 = lp_dot(t, t) * inv_in;
+  float m_c = 1.0f / (4.0f * inv_mass + ang8);
+  lp_contact_force(m, -cwz, up, vc, mu, m_c, m_c, bw);
+  lp_cross(r_c, bw, bw + 3);
+}
+
+#if LP_HAS_BOX2
+// Corner c8 of cube A (rotation RA, state a, half-size ha) vs cube B
+// (pallas_step.py corners_vs_box): returns the depth (> 0 inside B). With
+// bb given, also the penalty force on A along B's nearest face normal
+// (bb[0..2]), its torque about A (bb[3..5]) and about B (bb[6..8]); `share`
+// is the direction's active-corner count.
+LP_DEV float lp_corner_box(const LaneModel* m, const float* RA, const float* a, float ha,
+                           const float* RB, const float* b, float hb, int c8, float share,
+                           float inv_ma, float inv_ia, float inv_mb, float inv_ib, float mu,
+                           float* bb) {
+  float cl[3] = {(c8 & 4) ? ha : -ha, (c8 & 2) ? ha : -ha, (c8 & 1) ? ha : -ha};
+  float cw[3], t[3], loc[3], gap[3];
+  lp_matvec(RA, cl, t);
+  for (int c = 0; c < 3; ++c) { cw[c] = a[c] + t[c]; t[c] = cw[c] - b[c]; }
+  lp_matTvec(RB, t, loc);
+  for (int c = 0; c < 3; ++c) gap[c] = hb - fabsf(loc[c]);
+  const float depth = fminf(fminf(gap[0], gap[1]), gap[2]);
+  if (!bb) return depth;
+  bool m01 = gap[0] < gap[1];
+  bool m2 = (m01 ? gap[0] : gap[1]) < gap[2];
+  bool sel0 = m01 && m2, sel1 = !m01 && m2, sel2 = !m2;
+  float nl[3] = {sel0 ? (loc[0] >= 0.f ? 1.f : -1.f) : 0.f,
+                 sel1 ? (loc[1] >= 0.f ? 1.f : -1.f) : 0.f,
+                 sel2 ? (loc[2] >= 0.f ? 1.f : -1.f) : 0.f};
+  float nw[3], r_a[3], r_b[3], va[3], vb[3], rel[3];
+  lp_matvec(RB, nl, nw);
+  for (int c = 0; c < 3; ++c) { r_a[c] = cw[c] - a[c]; r_b[c] = cw[c] - b[c]; }
+  lp_cross(a + 10, r_a, t);
+  for (int c = 0; c < 3; ++c) va[c] = a[7 + c] + t[c];
+  lp_cross(b + 10, r_b, t);
+  for (int c = 0; c < 3; ++c) vb[c] = b[7 + c] + t[c];
+  // both cubes get the same gravity kick: the predicted relative velocity
+  // is the current one
+  for (int c = 0; c < 3; ++c) rel[c] = va[c] - vb[c];
+  float rxa[3], rxb[3];
+  lp_cross(r_a, nw, rxa);
+  lp_cross(r_b, nw, rxb);
+  float m_red = 1.0f / (share * inv_ma + lp_dot(rxa, rxa) * inv_ia + share * inv_mb +
+                        lp_dot(rxb, rxb) * inv_ib);
+  lp_contact_force(m, depth, nw, rel, mu, m_red, m_red, bb);
+  lp_cross(r_a, bb, bb + 3);
+  lp_cross(r_b, bb, bb + 6);
+  return depth;
+}
+
+// Cube-cube corner c (0-7: the box's corners in the second box; 8-15: the
+// second box's in the box), as lp_corner_box.
+LP_DEV float lp_cube_corner(const LaneModel* m, const LpEnv* s, int c, float share,
+                            float* bb) {
+  const float bm_s = s->drv[2];
+  const float ib1 = 1.0f / (m->box_mass * bm_s), ii1 = 1.0f / (m->box_inertia * bm_s);
+  const float ib2 = 1.0f / (m->box2_mass * bm_s), ii2 = 1.0f / (m->box2_inertia * bm_s);
+  const float mu = m->mu_bb * s->drv[3];
+  return c < 8 ? lp_corner_box(m, s->Rb, s->box, m->half, s->Rb2, s->box + 13, m->half2, c,
+                               share, ib1, ii1, ib2, ii2, mu, bb)
+               : lp_corner_box(m, s->Rb2, s->box + 13, m->half2, s->Rb, s->box, m->half,
+                               c - 8, share, ib2, ii2, ib1, ii1, mu, bb);
+}
+#endif
+
 // ---------------------------------------------------------------- substep phases
+// 1 (at level 0). Each box's lane forms its rotation matrix.
+LP_DEV void lp_box_rots(const LaneModel* m, LpEnv* s, int lane) {
+  if (lane == LP_BOX_LANE && m->has_box) lp_rotmat(s->box + 3, s->Rb);
+#if LP_HAS_BOX2
+  if (lane == LP_BOX2_LANE) lp_rotmat(s->box + 16, s->Rb2);
+#endif
+}
+
 // 2a. Sphere poses and velocities; the box-contact flags.
 LP_DEV void lp_spheres_phase(const LaneModel* m, LpEnv* s, int lane) {
   LpContactBuf* cb = &s->u.c;
@@ -480,22 +658,27 @@ LP_DEV void lp_spheres_phase(const LaneModel* m, LpEnv* s, int lane) {
     for (int c = 0; c < 3; ++c) cb->sv[j][c] = bk[7 + c] + t[c];
     if (m->has_box) {
       LpBoxGeo g;
-      float depth = lp_box_geo(m, s->Rb, s->box, cb->sp[j], m->srad[j], &g);
+      float depth = lp_box_geo(m->half, s->Rb, s->box, cb->sp[j], m->srad[j], &g);
       cb->act[j] = depth > 0.f ? 1.f : 0.f;
     }
+#if LP_HAS_BOX2
+    LpBoxGeo g2;
+    float depth2 = lp_box_geo(m->half2, s->Rb2, s->box + 13, cb->sp[j], m->srad[j], &g2);
+    cb->act2[j] = depth2 > 0.f ? 1.f : 0.f;
+#endif
   }
+#if LP_HAS_BOX2
+  for (int c = lane; c < 16; c += LP_W)
+    cb->actbb[c] = lp_cube_corner(m, s, c, 0.f, (float*)0) > 0.f ? 1.f : 0.f;
+#endif
 }
 
 // 2b. Contact forces: spheres vs ground and box, finger pairs, box corners
-// vs ground, each into its own slot.
+// vs ground, each into its own slot; in the two-cube build also the spheres
+// vs the second box, its corners vs ground and the cube-cube corners.
 LP_DEV void lp_forces_phase(const LaneModel* m, LpEnv* s, int lane) {
   LpContactBuf* cb = &s->u.c;
-  const float h = m->h, gz = m->gz;
   const float bm_s = s->drv[2], fr_s = s->drv[3];
-  const float* Rb = s->Rb;
-  const float* bpos = s->box;
-  const float* blin = s->box + 7;
-  const float* bang = s->box + 10;
   const float up[3] = {0.f, 0.f, 1.f};
   float inv_box_mass = 0.f, inv_box_in = 0.f, share_bm = 0.f;
   if (m->has_box) {
@@ -505,6 +688,13 @@ LP_DEV void lp_forces_phase(const LaneModel* m, LpEnv* s, int lane) {
     for (int j = 0; j < m->ns; ++j) n_act += cb->act[j];
     share_bm = fmaxf(n_act, 1.0f) * inv_box_mass;
   }
+#if LP_HAS_BOX2
+  const float inv_box2_mass = 1.0f / (m->box2_mass * bm_s);
+  const float inv_box2_in = 1.0f / (m->box2_inertia * bm_s);
+  float n_act2 = 0.f;
+  for (int j = 0; j < m->ns; ++j) n_act2 += cb->act2[j];
+  const float share2_bm = fmaxf(n_act2, 1.0f) * inv_box2_mass;
+#endif
   for (int j = lane; j < m->ns; j += LP_W) {
     const float* sp = cb->sp[j];
     const float* sv = cb->sv[j];
@@ -512,8 +702,16 @@ LP_DEV void lp_forces_phase(const LaneModel* m, LpEnv* s, int lane) {
     float f[3];
     lp_contact_force(m, r - sp[2], up, sv, m->mu_hg * fr_s, meff, meff, f);
     if (m->has_box) {
+      // the box's pass is lp_sphere_box written out: as a call, the one-box
+      // K2 build compiled to 4 bytes of spills (ptxas on sm_90a), the
+      // one-box builds' registers and stack are kept as they were
+      const float h = m->h, gz = m->gz;
+      const float* Rb = s->Rb;
+      const float* bpos = s->box;
+      const float* blin = s->box + 7;
+      const float* bang = s->box + 10;
       LpBoxGeo g;
-      lp_box_geo(m, Rb, bpos, sp, r, &g);
+      lp_box_geo(m->half, Rb, bpos, sp, r, &g);
       bool outside = g.dist > 1e-9f;
       bool m01 = g.gap[0] < g.gap[1];
       bool m2 = (m01 ? g.gap[0] : g.gap[1]) < g.gap[2];
@@ -534,7 +732,7 @@ LP_DEV void lp_forces_phase(const LaneModel* m, LpEnv* s, int lane) {
       lp_matvec(Rb, surf, r_c);
       lp_cross(bang, r_c, t);
       for (int c = 0; c < 3; ++c) rel[c] = sv[c] - (blin[c] + t[c]);
-      rel[2] = rel[2] - gz * h;  // the box's gravity kick (rel = sphere - box)
+      rel[2] = rel[2] - gz * h;
       float rxn[3];
       lp_cross(r_c, nw, rxn);
       float ang_n = lp_dot(rxn, rxn) * inv_box_in;
@@ -557,6 +755,10 @@ LP_DEV void lp_forces_phase(const LaneModel* m, LpEnv* s, int lane) {
       lp_cross(r_c, bw, bw + 3);
     }
     for (int c = 0; c < 3; ++c) cb->F[j][c] = f[c];
+#if LP_HAS_BOX2
+    lp_sphere_box(m, s->Rb2, s->box + 13, m->half2, sp, sv, r, meff, share2_bm, inv_box2_in,
+                  m->mu_hb2 * fr_s, cb->F[m->ns + m->n_sc + j], cb->BW2[j]);
+#endif
   }
   // finger-finger self-collision over the pruned pairs: +f on sphere i at its
   // center, -f on sphere j
@@ -573,24 +775,21 @@ LP_DEV void lp_forces_phase(const LaneModel* m, LpEnv* s, int lane) {
     lp_contact_force(m, m->sc_rsum[p] - dist, n3, rel, m->mu_hh * fr_s, m->sc_meff[p],
                      m->sc_meff[p], cb->F[m->ns + p]);
   }
-  // box corners vs ground
-  for (int c8 = lane; m->has_box && c8 < 8; c8 += LP_W) {
-    float cl[3] = {(c8 & 4) ? m->half : -m->half, (c8 & 2) ? m->half : -m->half,
-                   (c8 & 1) ? m->half : -m->half};
-    float cw[3], r_c[3], t[3], vc[3];
-    lp_matvec(Rb, cl, t);
-    for (int c = 0; c < 3; ++c) { cw[c] = bpos[c] + t[c]; r_c[c] = cw[c] - bpos[c]; }
-    float cwz = cw[2];
-    lp_cross(bang, r_c, t);
-    for (int c = 0; c < 3; ++c) vc[c] = blin[c] + t[c];
-    vc[2] = vc[2] + gz * h;  // the box is the first body here: its kick adds
-    lp_cross(r_c, up, t);
-    float ang8 = lp_dot(t, t) * inv_box_in;
-    float m_c = 1.0f / (4.0f * inv_box_mass + ang8);
-    float* bw = cb->BW[m->ns + c8];
-    lp_contact_force(m, -cwz, up, vc, m->mu_bg * fr_s, m_c, m_c, bw);
-    lp_cross(r_c, bw, bw + 3);
-  }
+  // box corners vs ground (lanes 0-7)
+  for (int c8 = lane; m->has_box && c8 < 8; c8 += LP_W)
+    lp_corner_ground(m, s->Rb, s->box, m->half, c8, inv_box_mass, inv_box_in,
+                     m->mu_bg * fr_s, cb->BW[m->ns + c8]);
+#if LP_HAS_BOX2
+  // the second box's corners vs ground (lanes 8-15), then the cube-cube
+  // corners (a lane each), each direction with its own share count
+  for (int c8 = lane - 8; c8 >= 0 && c8 < 8; c8 += LP_W)
+    lp_corner_ground(m, s->Rb2, s->box + 13, m->half2, c8, inv_box2_mass, inv_box2_in,
+                     m->mu_b2g * fr_s, cb->BW2[m->ns + c8]);
+  float n_bb[2] = {0.f, 0.f};
+  for (int c = 0; c < 16; ++c) n_bb[c >> 3] += cb->actbb[c];
+  for (int c = lane; c < 16; c += LP_W)
+    lp_cube_corner(m, s, c, fmaxf(n_bb[c >> 3], 1.0f), cb->BB[c]);
+#endif
 }
 
 // Box integration with PhysX-style velocity caps (box lane).
@@ -622,10 +821,12 @@ LP_DEV void lp_box_integrate(const LaneModel* m, float* box, const float* box_f,
   for (int c = 0; c < 3; ++c) { box[7 + c] = lv[c]; box[10 + c] = av[c]; }
 }
 
-// 3. Body lanes: own contacts (spheres, then pairs, in index order), gravity
-// at the COM and the CRBA terms about the world origin (T = Ic_w - m
-// [c]x[c]x, 6 terms of the symmetric 3x3; K = m c), into registers. Box lane:
-// the box's contact wrench (spheres, then corners) and its integration.
+// 3. Body lanes: own contacts (spheres, then pairs, then spheres vs the
+// second box, in index order), gravity at the COM and the CRBA terms about
+// the world origin (T = Ic_w - m [c]x[c]x, 6 terms of the symmetric 3x3; K =
+// m c), into registers. Box lane: the box's contact wrench (spheres, then
+// corners, then the cube-cube sums) and its integration; the second box's
+// lane the same for its box.
 LP_DEV void lp_body_own(const LaneModel* m, LpEnv* s, int i, float* W, float* T, float* K) {
   const LpContactBuf* cb = &s->u.c;
   float cf[3] = {0.f, 0.f, 0.f}, bF[3] = {0.f, 0.f, 0.f}, bN[3] = {0.f, 0.f, 0.f};
@@ -682,11 +883,41 @@ LP_DEV void lp_body_phase(const LaneModel* m, LpEnv* s, LpLane& L, int lane) {
         lp_add3(box_f, cb->BW[j]);
         lp_add3(box_t, cb->BW[j] + 3);
       }
+#if LP_HAS_BOX2
+      // + (fa1 + fa2): its corners in the second box, then the second box's
+      // corners in it (the reaction: minus the force, minus its torque about
+      // this box)
+      float fa1[3] = {0.f, 0.f, 0.f}, ta1[3] = {0.f, 0.f, 0.f};
+      float fa2[3] = {0.f, 0.f, 0.f}, ta2[3] = {0.f, 0.f, 0.f};
+      for (int c = 0; c < 8; ++c) { lp_add3(fa1, cb->BB[c]); lp_add3(ta1, cb->BB[c] + 3); }
+      for (int c = 8; c < 16; ++c) { lp_sub3(fa2, cb->BB[c]); lp_sub3(ta2, cb->BB[c] + 6); }
+      for (int c = 0; c < 3; ++c) { box_f[c] += fa1[c] + fa2[c]; box_t[c] += ta1[c] + ta2[c]; }
+#endif
       lp_box_integrate(m, s->box, box_f, box_t, 1.0f / (m->box_mass * bm_s),
                        1.0f / (m->box_inertia * bm_s));
     }
     for (int c = 0; c < 3; ++c) s->bf[c] = box_f[c];
   }
+#if LP_HAS_BOX2
+  if (lane == LP_BOX2_LANE) {
+    // spheres, corners, then + (fb1 + fb2): the box's corners in it (the
+    // reaction), then its own corners in the box
+    const float bm_s = s->drv[2];
+    float f2[3] = {0.f, 0.f, 0.f}, t2[3] = {0.f, 0.f, 0.f};
+    for (int j = 0; j < m->ns + 8; ++j) {
+      lp_add3(f2, cb->BW2[j]);
+      lp_add3(t2, cb->BW2[j] + 3);
+    }
+    float fb1[3] = {0.f, 0.f, 0.f}, tb1[3] = {0.f, 0.f, 0.f};
+    float fb2[3] = {0.f, 0.f, 0.f}, tb2[3] = {0.f, 0.f, 0.f};
+    for (int c = 0; c < 8; ++c) { lp_sub3(fb1, cb->BB[c]); lp_sub3(tb1, cb->BB[c] + 6); }
+    for (int c = 8; c < 16; ++c) { lp_add3(fb2, cb->BB[c]); lp_add3(tb2, cb->BB[c] + 3); }
+    for (int c = 0; c < 3; ++c) { f2[c] += fb1[c] + fb2[c]; t2[c] += tb1[c] + tb2[c]; }
+    lp_box_integrate(m, s->box + 13, f2, t2, 1.0f / (m->box2_mass * bm_s),
+                     1.0f / (m->box2_inertia * bm_s));
+    for (int c = 0; c < 3; ++c) s->bf[3 + c] = f2[c];
+  }
+#endif
 }
 
 // 4a. Own wrench and CRBA terms into shared memory (the contact buffers are
@@ -833,12 +1064,12 @@ LP_DEV void lp_forward_phase(const LaneModel* m, LpEnv* s, int lane, int lev) {
 }
 
 // One integrator substep (pallas_step.py substep) of the env in s: q, qd and
-// box are updated; cf and bf receive this substep's body contact forces and
-// the box's net contact force.
+// box (both boxes in the two-cube build) are updated; cf and bf receive this
+// substep's body contact forces and each box's net contact force.
 LP_DEV void lp_substep(const LaneModel* m, LpEnv* s, LpLane* Ls) {
   for (int lev = 0; lev < m->n_levels; ++lev)
     LP_WARP(lp_fk_phase(m, lev, lane, L, s->q, s->qd, s->spawn, s->kin, s->S);
-            if (lev == 0 && lane == LP_BOX_LANE && m->has_box) lp_rotmat(s->box + 3, s->Rb););
+            if (lev == 0) lp_box_rots(m, s, lane););
   LP_WARP(lp_spheres_phase(m, s, lane););
   LP_WARP(lp_forces_phase(m, s, lane););
   LP_WARP(lp_body_phase(m, s, L, lane););

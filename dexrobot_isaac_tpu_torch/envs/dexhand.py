@@ -16,7 +16,10 @@ fused kernel takes them as operands. A caller may pass its own samples
 (`samples=`), which is how the tests feed JAX-sampled values.
 
 Physics: on a CUDA tensor `step_fn` runs the lane-physics kernel
-(`physics/lane_step.py`), on a CPU tensor its plain version.
+(`physics/lane_step.py`), on a CPU tensor its plain version. Two-box scenes
+(`SimParams.has_box2`, BoxStacking) carry the second box's state, reset it
+from the task's `box2_pos`/`box2_quat` and hand its contact force to the
+task.
 """
 
 from __future__ import annotations
@@ -105,6 +108,13 @@ class DexHandEnv:
         dr = DRSample.sample(self.generator, n, c.dr_ranges) if c.dr_ranges else None
         return reset_vals, dr
 
+    def _check_reset_vals(self, reset_vals: TaskReset) -> None:
+        """A two-box scene needs the second box's reset pose from the task."""
+        if self.comps.engine.params.has_box2 and (
+                reset_vals.box2_pos is None or reset_vals.box2_quat is None):
+            raise ValueError(f"task {self.comps.task.name!r} configures a has_box2 scene but "
+                             "reset_task did not provide box2_pos/box2_quat")
+
     def _observe(self, phys, kin, state_like, task_states):
         c = self.comps
         obs_dict, new_duration, binary = obs_mod.compute_default_observations(
@@ -114,9 +124,12 @@ class DexHandEnv:
             state_like["contact_duration_steps"], state_like["prev_contact_binary"],
             state_like["episode_step_count"],
         )
+        # the second box's force goes to the task only in two-box scenes
+        extra = ({"box2_contact_force": state_like["box2_contact_force"]}
+                 if state_like.get("box2_contact_force") is not None else {})
         tstep = c.task.compute_step(obs_dict, task_states, phys, kin,
                                     state_like["body_contact_force"],
-                                    state_like["box_contact_force"], c.control_dt)
+                                    state_like["box_contact_force"], c.control_dt, **extra)
         obs_dict.update(tstep.task_obs)
         obs_buf = obs_mod.concat_selected_observations(c.obs_cfg, obs_dict)
         if c.obs_cfg.critic_observation_keys:
@@ -150,6 +163,7 @@ class DexHandEnv:
             "prev_actions": actions,
             "body_contact_force": info.body_contact_force,
             "box_contact_force": info.box_contact_force,
+            "box2_contact_force": info.box2_contact_force,
             "contact_duration_steps": state.contact_duration_steps,
             "prev_contact_binary": state.prev_contact_binary,
             "episode_step_count": state.episode_step_count,
@@ -178,6 +192,7 @@ class DexHandEnv:
             torch.zeros_like(state.consecutive_successes))
 
         # --- masked auto-reset of done envs (spawn-projected reset poses) ---
+        self._check_reset_vals(reset_vals)
         rdof = c.task.project_spawn(reset_vals.dof_pos)
         reset_active = action_mod.extract_active_targets(rdof)
         new_phys = PhysicsState(
@@ -190,6 +205,11 @@ class DexHandEnv:
             box_linvel=_where(done, 0.0, phys.box_linvel),
             box_angvel=_where(done, 0.0, phys.box_angvel),
         )
+        if phys.box2_pos is not None:
+            new_phys.box2_pos = _where(done, reset_vals.box2_pos, phys.box2_pos)
+            new_phys.box2_quat = _where(done, reset_vals.box2_quat, phys.box2_quat)
+            new_phys.box2_linvel = _where(done, 0.0, phys.box2_linvel)
+            new_phys.box2_angvel = _where(done, 0.0, phys.box2_angvel)
         new_dr = state.dr if dr_new is None else DRSample(*(
             _where(done, getattr(dr_new, f.name), getattr(state.dr, f.name))
             for f in dataclasses.fields(DRSample)))
@@ -224,6 +244,13 @@ class DexHandEnv:
             "reward_components": components,
             **term_info,
         }
+        if "spawn_difficulty" in state.task_states:
+            # the curriculum's strict gate (train.py promote_strict): episodes
+            # spawned at the controller's difficulty, read from the pre-step
+            # state (constant through an episode)
+            strict = state.task_states["spawn_difficulty"] >= state.difficulty - 1e-4
+            extras["success_strict"] = term_info["success"] & strict
+            extras["done_strict"] = done & strict
         return new_state, obs_buf, rew, done, extras
 
     def reset_fn(self, samples=None):
@@ -233,6 +260,7 @@ class DexHandEnv:
         n, dev = c.num_envs, self.device
         difficulty = torch.tensor(c.initial_difficulty, dtype=torch.float32, device=dev)
         reset_vals, dr = samples if samples is not None else self.draw_samples(n, difficulty)
+        self._check_reset_vals(reset_vals)
         dof = c.task.project_spawn(reset_vals.dof_pos)
         zeros = lambda *s, dt=torch.float32: torch.zeros(*s, dtype=dt, device=dev)
         quat = zeros(n, 4)
@@ -243,6 +271,10 @@ class DexHandEnv:
             box_quat=reset_vals.box_quat if reset_vals.box_quat is not None else quat,
             box_linvel=zeros(n, 3), box_angvel=zeros(n, 3),
         )
+        has_box2 = c.engine.params.has_box2
+        if has_box2:
+            phys.box2_pos, phys.box2_quat = reset_vals.box2_pos, reset_vals.box2_quat
+            phys.box2_linvel, phys.box2_angvel = zeros(n, 3), zeros(n, 3)
         kin = c.engine.fk(phys.q, phys.qd, self._spawn.expand(n, 3))
         nc = c.obs_cfg.num_contact_bodies
         reset_active = action_mod.extract_active_targets(dof)
@@ -252,6 +284,7 @@ class DexHandEnv:
             "prev_actions": zeros(n, c.num_actions),
             "body_contact_force": zeros(n, c.model.num_bodies, 3),
             "box_contact_force": zeros(n, 3),
+            "box2_contact_force": zeros(n, 3) if has_box2 else None,
             "contact_duration_steps": zeros(n, nc, dt=torch.int32),
             "prev_contact_binary": zeros(n, nc),
             "episode_step_count": zeros(n, dt=torch.int32),

@@ -1,11 +1,13 @@
 """K1: the fused env step, the WHOLE control step in one CUDA kernel.
 
 The port of `dexrobot_isaac_tpu/envs/fused_step.py`. The kernel
-(`csrc/fused_step.cu`, one thread per env over the lane physics of
+(`csrc/fused_step.cu`, a half-warp per env over the lane physics of
 `csrc/lane_physics.cuh`) runs the action pipeline, `physics_steps_per_control
 x substeps` substeps and the final FK, the default observations, the task's
-step (BlindGrasping), termination, rewards, the spawn projection of the reset
-rows and the done-masked reset merge, over a packed transposed state:
+step, termination, rewards, the spawn projection of the reset rows and the
+done-masked reset merge, over a packed transposed state. Each task with a
+kernel step has its own build (`FUSED_BUILDS`): BlindGrasping, BaseTask (no
+task step) and BoxStacking (with the platform cube's rows).
 
 - `FusedEnvState` holds `rows_f (Rf, N) f32` and `rows_i (Ri, N) i32` (env
   index minor, as in the JAX package), the write-only `rows_c`, and the
@@ -22,7 +24,9 @@ rows and the done-masked reset merge, over a packed transposed state:
 `build_fused_step` makes the wrapper (`kernel`): it launches the kernel on
 CUDA tensors and runs the plain version (`kernel_plain`: unpack -> the env's
 plain step -> pack) on CPU tensors. Configurations without a kernel
-implementation raise `FusedUnsupported`.
+implementation raise `FusedUnsupported`. Tasks that carry each env's spawn
+difficulty (BoxStacking) also get `success_strict`/`done_strict` extras, as
+the unfused step does.
 """
 
 from __future__ import annotations
@@ -39,11 +43,14 @@ import torch
 from dexrobot_isaac_tpu_torch.constants import NUM_DOFS
 from dexrobot_isaac_tpu_torch.envs import action as action_mod
 from dexrobot_isaac_tpu_torch.envs.rewards import COMMON_TERMS
+from dexrobot_isaac_tpu_torch.envs.observations import default_obs_dims
 from dexrobot_isaac_tpu_torch.envs.tasks.api import TaskReset
+from dexrobot_isaac_tpu_torch.envs.tasks.base_task import BaseTask
 from dexrobot_isaac_tpu_torch.envs.tasks.blind_grasping import BlindGraspingTask
+from dexrobot_isaac_tpu_torch.envs.tasks.box_stacking import BoxStackingTask
 from dexrobot_isaac_tpu_torch.envs.types import EnvState
 from dexrobot_isaac_tpu_torch.physics import lane_step
-from dexrobot_isaac_tpu_torch.physics.types import DR_FIELDS, DRSample, PhysicsState
+from dexrobot_isaac_tpu_torch.physics.types import BOX2_FIELDS, DR_FIELDS, DRSample, PhysicsState
 from dexrobot_isaac_tpu_torch.utils import kernel_build as kb
 
 
@@ -72,6 +79,9 @@ class FusedLayout:
     _PHYS = ["q", "qd", "box_pos", "box_quat", "box_linvel", "box_angvel"]
 
     def __init__(self, template: EnvState):
+        # a two-box scene: the second box's 13 rows join the f32 pack
+        self.has_box2 = template.physics.box2_pos is not None
+        self.phys_names = self._PHYS + (list(BOX2_FIELDS) if self.has_box2 else [])
         self.shapes: Dict[str, tuple] = {}
         self.dtypes: Dict[str, torch.dtype] = {}
         f_names, i_names, c_names = [], [], []
@@ -84,7 +94,7 @@ class FusedLayout:
             else:
                 (f_names if leaf.dtype == torch.float32 else i_names).append(name)
 
-        for n in self._PHYS:
+        for n in self.phys_names:
             add(n, getattr(template.physics, n))
         for n in self._F_DIRECT:
             add(n, getattr(template, n))
@@ -115,7 +125,7 @@ class FusedLayout:
         self.offs_c, self.rows_c = offsets(c_names)
 
     def _leaf(self, state: EnvState, name: str):
-        if name in self._PHYS:
+        if name in self.phys_names:
             return getattr(state.physics, name)
         prefix, _, key = name.partition(".")
         if prefix == "dr":
@@ -149,7 +159,7 @@ class FusedLayout:
                     self.dtypes[nm])
         sub = lambda p: {k[3:]: v[k] for k in self.f_names + self.i_names if k.startswith(p)}
         return EnvState(
-            physics=PhysicsState(**{p: v[p] for p in self._PHYS}),
+            physics=PhysicsState(**{p: v[p] for p in self.phys_names}),
             full_dof_targets=v["full_dof_targets"],
             active_prev_targets=v["active_prev_targets"],
             active_rule_targets=v["active_prev_targets"],
@@ -186,15 +196,37 @@ OBS_KEYS = (
     "avg_finger_to_object_height_diff", "hand_to_object_distance", "fingerpad_distances",
     "first_three_fingerpad_centroid", "thumb_contact", "other_fingers_contact",
     "grasp_state", "grasp_duration", "current_stage", "time_in_stage", "stage_progress",
+    # BoxStacking's (object_pos, object_vel and finger_to_object_distances above)
+    "object_quat", "platform_pos", "platform_quat", "to_stack_target", "stack_dist",
+    "fingers_on_box", "hold_duration",
 )
-REWARD_TERMS = COMMON_TERMS + BlindGraspingTask.reward_terms
-SUCCESS_CRITERIA = BlindGraspingTask.success_criteria
-FAILURE_CRITERIA = ("hitting_ground",) + BlindGraspingTask.failure_criteria
+# K1's build of each task's step (utils/kernel_build.py BUILDS); the task's
+# exact class, so that a subclass with its own step has none
+FUSED_BUILDS = {BaseTask: "fused_step_base", BlindGraspingTask: "fused_step",
+                BoxStackingTask: "fused_step_stacking"}
 TERM_COMPONENTS = (
     "total", "termination_success", "termination_success_weighted",
     "termination_failure_penalty", "termination_failure_penalty_weighted",
     "termination_timeout_penalty", "termination_timeout_penalty_weighted",
 )
+
+
+def reward_terms_for(task):
+    """The kernel's reward-term ids: the common terms, then the task's."""
+    return COMMON_TERMS + task.reward_terms
+
+
+def failure_criteria_for(task):
+    """The kernel's failure-criterion ids (success: task.success_criteria)."""
+    return ("hitting_ground",) + task.failure_criteria
+
+
+def build_for(task) -> str:
+    """K1's build for this task; raises FusedUnsupported without one."""
+    build = FUSED_BUILDS.get(type(task))
+    if build is None:
+        raise FusedUnsupported(f"task {task.name} has no fused-kernel implementation yet")
+    return build
 
 
 def _check_supported(env) -> None:
@@ -204,8 +236,7 @@ def _check_supported(env) -> None:
         # SimParams.coriolis docstring; the JAX fused step does not check
         # it and drops the bias on TPU)
         raise FusedUnsupported("SimParams.coriolis")
-    if not isinstance(c.task, BlindGraspingTask):
-        raise FusedUnsupported(f"task {c.task.name} has no fused-kernel implementation yet")
+    build_for(c.task)
     if c.task.pre_action_rule is not None or c.task.custom_action_rule is not None \
             or c.task.custom_post_filters:
         raise FusedUnsupported("custom pre-action rule, action rule or filters")
@@ -213,7 +244,8 @@ def _check_supported(env) -> None:
         if f not in ("velocity_clamp", "position_clamp"):
             raise FusedUnsupported(f"unknown post-action filter {f}")
     keys = list(c.obs_cfg.policy_observation_keys) + list(c.obs_cfg.critic_observation_keys)
-    missing = [k for k in keys if k not in OBS_KEYS]
+    planned = set(default_obs_dims(c.obs_cfg)) | set(c.task.obs_dims)
+    missing = [k for k in keys if k not in OBS_KEYS or k not in planned]
     if missing:
         raise FusedUnsupported(f"observation keys without a kernel row plan: {missing}")
     if c.obs_cfg.num_contact_bodies > 8 or len(c.obs_cfg.fingertip_site_indices) != 5:
@@ -234,10 +266,14 @@ def template_state(env, n: int) -> EnvState:
     z = lambda *s, dt=torch.float32: torch.zeros(*s, dtype=dt)
     nc = c.obs_cfg.num_contact_bodies
     b = lambda: z(n, dt=torch.bool)
-    failure = ({"hitting_ground"} if c.term_cfg.has_height_safety else set()) | set(
+    task_hg = getattr(c.task, "overrides_hitting_ground", False)
+    failure = ({"hitting_ground"} if c.term_cfg.has_height_safety or task_hg else set()) | set(
         c.task.failure_criteria)
+    box2 = ({"box2_pos": z(n, 3), "box2_quat": z(n, 4), "box2_linvel": z(n, 3),
+             "box2_angvel": z(n, 3)} if c.engine.params.has_box2 else {})
     return EnvState(
-        physics=PhysicsState(z(n, NUM_DOFS), z(n, NUM_DOFS), z(n, 3), z(n, 4), z(n, 3), z(n, 3)),
+        physics=PhysicsState(z(n, NUM_DOFS), z(n, NUM_DOFS), z(n, 3), z(n, 4), z(n, 3), z(n, 3),
+                             **box2),
         full_dof_targets=z(n, NUM_DOFS), active_prev_targets=z(n, 18),
         active_rule_targets=z(n, 18), prev_actions=z(n, c.num_actions),
         prev_dof_pos=z(n, NUM_DOFS), contact_duration_steps=z(n, nc, dt=torch.int32),
@@ -253,14 +289,17 @@ def template_state(env, n: int) -> EnvState:
     )
 
 
-def operand_rows(reset: TaskReset, dr: DRSample | None, rts_keys, n: int, device):
-    """Reset samples -> rst_T (26 + 7 + task rows, N); DR -> drn_T (4, N)
-    (ones without DR). The kernel's operand layout."""
+def operand_rows(reset: TaskReset, dr: DRSample | None, rts_keys, n: int, device,
+                 has_box2: bool = False):
+    """Reset samples -> rst_T (26 + 7 [+ 7 for the second box] + task rows,
+    N); DR -> drn_T (4, N) (ones without DR). The kernel's operand layout."""
     quat = torch.zeros(n, 4, device=device)
     quat[:, 3] = 1.0
     parts = [reset.dof_pos,
              reset.box_pos if reset.box_pos is not None else torch.zeros(n, 3, device=device),
              reset.box_quat if reset.box_quat is not None else quat]
+    if has_box2:
+        parts += [reset.box2_pos, reset.box2_quat]
     parts += [reset.task_states[k].reshape(n, -1).float() for k in rts_keys]
     rst = torch.cat([p.float() for p in parts], dim=1).t().contiguous()
     drn = dr.rows().contiguous() if dr is not None else torch.ones(4, n, device=device)
@@ -303,28 +342,20 @@ def fused_config_array(env, layout: FusedLayout, comp_names, rst_rows: int,
         raise FusedUnsupported("an env's rows exceed the kernel's staging in shared memory")
     of = lambda k: layout.offs_f[k][0]
     oi = lambda k: layout.offs_i[k][0]
-    for k in ("q", "qd", "box_pos", "box_quat", "box_linvel", "box_angvel",
-              "active_prev_targets", "prev_actions", "prev_contact_binary",
-              "prev_finger_dof_vel", "prev_hand_vel", "prev_hand_ang_vel"):
+    for k in ("active_prev_targets", "prev_actions", "prev_contact_binary",
+              "prev_finger_dof_vel", "prev_hand_vel", "prev_hand_ang_vel", *layout.phys_names):
         r[f"f_{k}"] = of(k)
     r["f_dr"] = [of(f"dr.{k}") for k in DR_FIELDS]
-    for k in ("initial_box_pos", "stage_contact_duration", "time_in_stage"):
-        r[f"f_{k}"] = of(f"ts.{k}")
     for k in ("episode_step_count", "contact_duration_steps", "prev_contacts"):
         r[f"i_{k}"] = oi(k)
-    for short, k in (("current_stage", "current_stage"), ("just_t2", "just_transitioned_to_stage2"),
-                     ("just_t3", "just_transitioned_to_stage3"),
-                     ("success_conditions_met", "success_conditions_met"),
-                     ("success_duration_steps", "success_duration_steps")):
-        r[f"i_{short}"] = oi(f"ts.{k}")
     r["c_full_dof_targets"] = layout.offs_c["full_dof_targets"][0]
     r["c_body_contact_force"] = layout.offs_c["body_contact_force"][0]
     sflags = sorted(k[3:] for k in layout.i_names if k.startswith("sf."))
     fflags = sorted(k[3:] for k in layout.i_names if k.startswith("ff."))
     r["n_sflags"], r["n_fflags"] = len(sflags), len(fflags)
-    r["sflag_crit"][:len(sflags)] = [SUCCESS_CRITERIA.index(k) for k in sflags]
+    r["sflag_crit"][:len(sflags)] = [task.success_criteria.index(k) for k in sflags]
     r["sflag_row"][:len(sflags)] = [oi(f"sf.{k}") for k in sflags]
-    r["fflag_crit"][:len(fflags)] = [FAILURE_CRITERIA.index(k) for k in fflags]
+    r["fflag_crit"][:len(fflags)] = [failure_criteria_for(task).index(k) for k in fflags]
     r["fflag_row"][:len(fflags)] = [oi(f"ff.{k}") for k in fflags]
     tc = c.term_cfg
     r["max_episode_length"] = tc.max_episode_length
@@ -333,26 +364,56 @@ def fused_config_array(env, layout: FusedLayout, comp_names, rst_rows: int,
     r["has_height_safety"] = tc.has_height_safety
     r["handbase_threshold"], r["fingertip_threshold"] = (
         tc.handbase_threshold, tc.fingertip_threshold)
-    r["has_proj"] = int(task.spawn_projection and task._min_tip_z_fn is not None)
-    r["proj_clear"] = task.spawn_projection_clearance
+    # the spawn projection of the reset rows (BlindGrasping's)
+    r["has_proj"] = int(getattr(task, "spawn_projection", False)
+                        and getattr(task, "_min_tip_z_fn", None) is not None)
+    r["proj_clear"] = getattr(task, "spawn_projection_clearance", 0.0)
     r["proj_spawn"] = c.spawn_pos
     r["proj_site_mask"] = sum(1 << int(s) for s in oc.fingertip_site_indices)
     w = c.reward_cfg.weights
-    rew = [t for t in sorted(REWARD_TERMS) if w.get(t, 0.0) != 0.0]
+    terms = reward_terms_for(task)
+    rew = [t for t in sorted(terms) if w.get(t, 0.0) != 0.0]
     r["n_rew"] = len(rew)
-    r["rew_term"][:len(rew)] = [REWARD_TERMS.index(t) for t in rew]
+    r["rew_term"][:len(rew)] = [terms.index(t) for t in rew]
     r["rew_w"][:len(rew)] = [w[t] for t in rew]
     r["n_comp"] = len(comp_names)
     for j, name in enumerate(comp_names):
         if name in TERM_COMPONENTS:
             r["comp_kind"][j] = 2 + TERM_COMPONENTS.index(name)
-        elif name.endswith("_weighted") and name[:-9] in REWARD_TERMS:
-            r["comp_kind"][j], r["comp_idx"][j] = 1, REWARD_TERMS.index(name[:-9])
+        elif name.endswith("_weighted") and name[:-9] in terms:
+            r["comp_kind"][j], r["comp_idx"][j] = 1, terms.index(name[:-9])
         else:
-            r["comp_kind"][j], r["comp_idx"][j] = 0, REWARD_TERMS.index(name)
+            r["comp_kind"][j], r["comp_idx"][j] = 0, terms.index(name)
     r["finger_lower"] = c.reward_cfg.finger_lower_limits
     r["finger_upper"] = c.reward_cfg.finger_upper_limits
-    t = task
+    if isinstance(task, BlindGraspingTask):
+        _blind_grasping_fields(r, task, of, oi, c.control_dt)
+    elif isinstance(task, BoxStackingTask):
+        _box_stacking_fields(r, task, layout, rst_layout(env)[0])
+    return r
+
+
+def rst_layout(env):
+    """The reset operand's task-state rows: ({key: (row offset, rows)}, the
+    operand's rows), after the 26 dof rows, the box's 7 and the second
+    box's 7 (in sorted key order, as `operand_rows` stacks them)."""
+    c = env.comps
+    o = NUM_DOFS + 7 + (7 if c.engine.params.has_box2 else 0)
+    offs = {}
+    for k, v in sorted(c.task.init_task_states(1, "cpu").items()):
+        offs[k] = (o, max(1, int(np.prod(v.shape[1:]))))
+        o += offs[k][1]
+    return offs, o
+
+
+def _blind_grasping_fields(r, t: BlindGraspingTask, of, oi, control_dt) -> None:
+    for k in ("initial_box_pos", "stage_contact_duration", "time_in_stage"):
+        r[f"f_{k}"] = of(f"ts.{k}")
+    for short, k in (("current_stage", "current_stage"), ("just_t2", "just_transitioned_to_stage2"),
+                     ("just_t3", "just_transitioned_to_stage3"),
+                     ("success_conditions_met", "success_conditions_met"),
+                     ("success_duration_steps", "success_duration_steps")):
+        r[f"i_{short}"] = oi(f"ts.{k}")
     half = t.box_size / 2.0
     vals = dict(
         bg_contact_thr=t.contact_binary_threshold,
@@ -371,11 +432,37 @@ def fused_config_array(env, layout: FusedLayout, comp_names, rst_rows: int,
         bg_pen_scale=t.penetration_depth_scale,
         bg_ub_half=half * t.under_box_footprint_factor, bg_ub_margin=t.under_box_margin,
         bg_ub_ground_z=t.under_box_ground_z, bg_cdt=t.contact_duration_threshold,
-        bg_threshold_steps=int(round(t.contact_duration_threshold / c.control_dt)),
+        bg_threshold_steps=int(round(t.contact_duration_threshold / control_dt)),
     )
     for k, v in vals.items():
         r[k] = v
-    return r
+
+
+def _box_stacking_fields(r, t: BoxStackingTask, layout: FusedLayout, rst):
+    for k in ("platform_spawn_xy", "prev_transport_dist", "spawn_difficulty"):
+        r[f"f_{k}"] = layout.offs_f[f"ts.{k}"][0]
+        r[f"r_{k}"] = rst[k][0]
+    r["i_hold_duration_steps"] = layout.offs_i["ts.hold_duration_steps"][0]
+    r["r_hold_duration_steps"] = rst["hold_duration_steps"][0]
+    vals = dict(
+        bs_stack_dz=(t.plat_size + t.box_size) / 2.0, bs_pos_tol=t.position_tolerance,
+        bs_height_tol=t.height_tolerance, bs_rest_speed=t.rest_speed_tolerance,
+        bs_hold_thr=t.hold_duration_threshold, bs_hold_min=t.hold_anneal_min,
+        bs_box_far=t.box_far_threshold, bs_move_tol=t.platform_move_tolerance,
+        bs_contact_thr=t.contact_binary_threshold,
+        bs_prox_thr=math.sqrt(3.0) * t.box_size / 2.0 * 1.2,
+        bs_d_prox=t.proximity_decay, bs_d_transport=t.transport_decay, bs_d_place=t.place_decay,
+        bs_release_end=t.release_anneal_end, bs_tol_relax=t.tolerance_relax,
+        bs_hg_override=int(t.overrides_hitting_ground),
+        bs_tip_bridge_margin=t.fingertip_bridge_margin, bs_pocket_margin=t.pocket_margin,
+        bs_pocket_radius=t.pocket_radius, bs_pocket_end=t.pocket_anneal_end,
+        bs_handbase_thr=t.handbase_threshold, bs_fingertip_thr=t.fingertip_threshold,
+        bs_lift_z=t.box_z + 0.02, bs_ub_half=t.box_size / 2.0 * t.under_box_footprint_factor,
+        bs_ub_margin=t.under_box_margin, bs_ub_ground_z=t.under_box_ground_z,
+        bs_drift_free=t.drift_free_margin,
+    )
+    for k, v in vals.items():
+        r[k] = v
 
 
 # f32 operations of fs_env_step (csrc/fused_step.cu) outside the lane
@@ -391,9 +478,30 @@ _OBS_KEY_FLOPS = {"hand_pose_arr_aligned": lane_step._QMUL, "episode_time": 1,
 _COMP_KIND_FLOPS = (0, 1, 0, 1, 2, 1, 3, 1, 3)  # by comp_kind (CK_* in fused_step.cu)
 
 
-def fused_step_flops(cfg: np.ndarray, model: np.ndarray, n_envs: int, n_done: int) -> int:
-    """f32 operations of one K1 launch on `n_envs` envs of which `n_done`
-    reset, from the FusedConfig and LaneModel records it runs with."""
+# each task step's f32 operations per env (fs_task_step and fs_task_merge):
+# BlindGrasping's 5 pad distances and height diffs, hand distance, 10
+# pad-pair distances, centroid, box contact, stage machine, pregrasp checks
+# (3 norms), box-too-far, and its rewards (lowest tip distance 5 norms,
+# under-box 58); BoxStacking's stack target and its distances, 5 pad
+# distances, finger-box contact, the bridge, stacked, hold and criteria, the
+# per-tip hitting-ground check (5 x 13), its rewards (under-box 35) and the
+# second box's 13 merge selects
+_TASK_FLOPS = {
+    "fused_step": (5 * _NORM3 + 10 + _NORM3 + 10 * _NORM3 + 9 + _NORM3 + 1 + 10 + 1 + 1 + 1 + 3
+                   + 3 + 2 + 5 + 3 + 3 * _NORM3 + 3 + 1 + 9 + 4 + 5 + 16 + 5 + 3 + 5 * _NORM3
+                   + 4 + 4 + 16 + 10 + 2 + 3 + 58),
+    "fused_step_stacking": (1 + 3 + 6 + 4 + 1 + 6 + 5 * _NORM3 + 7 + 15 + 3 + 2 + 4 + 3 + 3 + 2
+                            + 3 + 2 + 5 + 4 + 2 + 3 + 5 * 13 + 2 + 4 + 2 + 2 + 2 + 3 + 1 + 3 + 3
+                            + 5 * 7 + 2 + 3 + 13),
+    "fused_step_base": 0,
+}
+
+
+def fused_step_flops(cfg: np.ndarray, model: np.ndarray, n_envs: int, n_done: int,
+                     build: str = "fused_step") -> int:
+    """f32 operations of one launch of K1's `build` on `n_envs` envs of which
+    `n_done` reset, from the FusedConfig and LaneModel records it runs
+    with."""
     nb, nc = int(model["nb"]), int(cfg["nc"])
     n_rew = int(cfg["n_rew"])
     pos = bool(cfg["position_mode"])
@@ -401,17 +509,12 @@ def fused_step_flops(cfg: np.ndarray, model: np.ndarray, n_envs: int, n_done: in
     action = (n_on * (5 if pos else 2) + (0 if pos else 2 * 18) + 3 * nb
               + sum(18 * (5 if f == 1 else 2) for f in cfg["filters"][:int(cfg["n_filters"])]))
     default_obs = 2 * nb + 11 * nc               # dof velocities, contact rows
-    # BlindGrasping's step: 5 pad distances and height diffs, hand distance,
-    # 10 pad-pair distances, centroid, box contact, stage machine, pregrasp
-    # checks (3 norms), box-too-far, lowest tip, hitting ground
-    task = (5 * _NORM3 + 10 + _NORM3 + 10 * _NORM3 + 9 + _NORM3 + 1 + 10 + 1 + 1 + 1 + 3 + 3
-            + 2 + 5 + 3 + 3 * _NORM3 + 3 + 1 + 4 + 2)
-    termination = 8
+    task = _TASK_FLOPS[build]
+    termination = 8 + 4 + 2                      # + lowest tip, hitting ground
     # common terms (finger velocity and acceleration norms 100, joint limits
-    # 222, hand velocity and acceleration 4 norms), task terms (lowest tip
-    # distance 5 norms, under-box 58), the weighted sum
-    rewards = (100 + 7 + 3 + 2 * (_NORM3 + 2) + 222 + 3 + 2 * (_NORM3 + 2) + 1 + 3 + 9 + 4 + 5
-               + 16 + 5 + 3 + 5 * _NORM3 + 4 + 4 + 16 + 10 + 2 + 3 + 58 + 3 * nc + 2 * n_rew)
+    # 222, hand velocity and acceleration 4 norms), the weighted sum
+    rewards = (100 + 7 + 3 + 2 * (_NORM3 + 2) + 222 + 3 + 2 * (_NORM3 + 2) + 1 + 3
+               + 3 * nc + 2 * n_rew)
     keys = [OBS_KEYS[k] for k in cfg["obs_keys"][:int(cfg["n_obs_keys"])]]
     outputs = (sum(_OBS_KEY_FLOPS.get(k, 0) for k in keys)
                + nc * keys.count("contact_duration") + 1
@@ -432,8 +535,8 @@ def shared_layout(lib: ctypes.CDLL):
     return tuple(v.value for v in vals)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = kb.load("fused_step")
+def _lib(build: str) -> ctypes.CDLL:
+    lib = kb.load(build)
     if not getattr(lib, "_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.fused_step_launch.argtypes = [P] * 13 + [I, P]
@@ -448,26 +551,28 @@ def build_fused_step(env):
     `kernel_plain` (its plain version). Raises FusedUnsupported."""
     _check_supported(env)
     c = env.comps
+    build = build_for(c.task)
+    has_box2 = c.engine.params.has_box2
     layout = FusedLayout(template_state(env, 1))
     comp_names = comp_names_for(env)
-    rts_keys = sorted(c.task.init_task_states(1, "cpu"))
-    rst_rows = NUM_DOFS + 7 + sum(
-        max(1, int(np.prod(v.shape[1:]))) for v in c.task.init_task_states(1, "cpu").values())
+    rts, rst_rows = rst_layout(env)
+    rts_keys = sorted(rts)
     obs_dim = env.num_obs + env.num_states
     n_comp = len(comp_names)
     bufs: Dict[str, torch.Tensor] = {}
+    sd_row = layout.offs_f.get("ts.spawn_difficulty", (None,))[0]
 
     def reset_from_rows(rst_T) -> TaskReset:
         """Inverse of `operand_rows` for the reset values."""
         n, rst = rst_T.shape[1], rst_T.t()
-        ts, o = {}, NUM_DOFS + 7
         tmpl = c.task.init_task_states(1, rst_T.device)
-        for k in rts_keys:
-            size = max(1, int(np.prod(tmpl[k].shape[1:])))
-            ts[k] = rst[:, o:o + size].reshape((n,) + tmpl[k].shape[1:]).to(tmpl[k].dtype)
-            o += size
-        return TaskReset(dof_pos=rst[:, :NUM_DOFS], box_pos=rst[:, NUM_DOFS:NUM_DOFS + 3],
-                         box_quat=rst[:, NUM_DOFS + 3:NUM_DOFS + 7], task_states=ts)
+        ts = {k: rst[:, o:o + size].reshape((n,) + tmpl[k].shape[1:]).to(tmpl[k].dtype)
+              for k, (o, size) in rts.items()}
+        d = NUM_DOFS
+        box2 = (dict(box2_pos=rst[:, d + 7:d + 10], box2_quat=rst[:, d + 10:d + 14])
+                if has_box2 else {})
+        return TaskReset(dof_pos=rst[:, :d], box_pos=rst[:, d:d + 3], box_quat=rst[:, d + 3:d + 7],
+                         task_states=ts, **box2)
 
     def kernel(rows_f, rows_i, act_T, rst_T, drn_T, spw_T):
         """K1 on rows; rows_f/rows_i are updated in place. Returns (rows_c,
@@ -475,7 +580,7 @@ def build_fused_step(env):
         if rows_f.device.type == "cpu":
             return kernel_plain(rows_f, rows_i, act_T, rst_T, drn_T, spw_T)
         lane_step.require_cuda(rows_f)
-        lib = _lib()
+        lib = _lib(build)
         n = rows_f.shape[1]
         # raises unless the operands are on the engine's device, where both
         # buffers live
@@ -493,8 +598,8 @@ def build_fused_step(env):
         outs = [e(layout.rows_c), e(obs_dim), e(1), e(4, torch.int32), e(n_comp)]
         kb.check(lib.fused_step_launch(model.data_ptr(), bufs["cfg"].data_ptr(), *ins,
                                        *(o.data_ptr() for o in outs), n,
-                                       kb.stream_ptr(rows_f.device)), "fused_step")
-        kb.LAUNCHES["fused_step"] += 1
+                                       kb.stream_ptr(rows_f.device)), build)
+        kb.LAUNCHES[build] += 1
         return tuple(outs)
 
     def kernel_plain(rows_f, rows_i, act_T, rst_T, drn_T, spw_T):
@@ -527,9 +632,14 @@ def build_fused_step(env):
             actions = actions.clamp(-c.clip_actions, c.clip_actions)
         if operands is None:
             reset, dr = env.draw_samples(n, fs.difficulty)
-            operands = operand_rows(reset, dr, rts_keys, n, actions.device)
+            operands = operand_rows(reset, dr, rts_keys, n, actions.device, has_box2)
         rst_T, drn_T = operands
         spw_T = env._spawn[:, None].expand(3, n).contiguous()
+        strict = None
+        if sd_row is not None:
+            # the curriculum's strict gate, as the unfused step: the pre-step
+            # spawn difficulty, read before the kernel overwrites the rows
+            strict = fs.rows_f[sd_row] >= fs.difficulty - 1e-4
         rows_c, obs_T, rew_T, msk_T, cmp_T = kernel(
             fs.rows_f, fs.rows_i, actions.t().contiguous(), rst_T, drn_T, spw_T)
         obs = obs_T.t()
@@ -543,6 +653,9 @@ def build_fused_step(env):
         new = FusedEnvState(fs.rows_f, fs.rows_i, rows_c, consecutive, fs.difficulty)
         extras = {"success": succ, "failure": msk_T[2] != 0, "timeout": msk_T[3] != 0,
                   "reward_components_packed": cmp_T.t()}
+        if strict is not None:
+            extras["success_strict"] = succ & strict
+            extras["done_strict"] = done & strict
         return new, obs, rew_T[0], done, extras
 
     def reset(samples=None):
@@ -554,5 +667,7 @@ def build_fused_step(env):
         comp_names=comp_names, layout=layout, obs_dim=obs_dim, rst_rows=rst_rows,
         rts_keys=rts_keys, kernel=kernel, kernel_plain=kernel_plain,
         reset_from_rows=reset_from_rows,
-        operand_rows=lambda reset, dr, n, device: operand_rows(reset, dr, rts_keys, n, device),
+        operand_rows=lambda reset, dr, n, device: operand_rows(reset, dr, rts_keys, n, device,
+                                                               has_box2),
+        build=build,
     )

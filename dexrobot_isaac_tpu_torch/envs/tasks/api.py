@@ -34,6 +34,9 @@ class TaskReset:
     box_pos: Optional[torch.Tensor] = None      # (N, 3)
     box_quat: Optional[torch.Tensor] = None     # (N, 4)
     task_states: Optional[Dict[str, torch.Tensor]] = None
+    # the second free box (SimParams.has_box2 scenes only)
+    box2_pos: Optional[torch.Tensor] = None     # (N, 3)
+    box2_quat: Optional[torch.Tensor] = None    # (N, 4)
 
 
 def detect_finger_box_contacts(obs_dict, box_contact_force, box_pos, box_size,
@@ -69,7 +72,8 @@ class DexTask:
         return {}
 
     def compute_step(self, obs_dict, task_states, physics, kin, body_contact_force,
-                     box_contact_force, control_dt) -> TaskStep:
+                     box_contact_force, control_dt, box2_contact_force=None) -> TaskStep:
+        """`box2_contact_force` is passed only in two-box scenes."""
         return TaskStep({}, task_states, {}, {}, {})
 
     def reset_task(self, gen: torch.Generator, num_envs: int, default_dof_pos,

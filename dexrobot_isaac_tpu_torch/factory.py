@@ -22,6 +22,7 @@ from dexrobot_isaac_tpu_torch.envs.dexhand import DexHandEnv, EnvComponents
 from dexrobot_isaac_tpu_torch.envs.tasks.api import DexTask
 from dexrobot_isaac_tpu_torch.envs.tasks.base_task import BaseTask
 from dexrobot_isaac_tpu_torch.envs.tasks.blind_grasping import BlindGraspingTask
+from dexrobot_isaac_tpu_torch.envs.tasks.box_stacking import BoxStackingTask
 from dexrobot_isaac_tpu_torch.models.dexhand021 import build_hand_model
 from dexrobot_isaac_tpu_torch.physics.engine import HandPhysics
 from dexrobot_isaac_tpu_torch.physics.lane_step import min_site_z
@@ -32,6 +33,7 @@ from dexrobot_isaac_tpu_torch.utils.device import resolve_device
 TASK_REGISTRY: Dict[str, Type[DexTask]] = {
     "BaseTask": BaseTask,
     "BlindGrasping": BlindGraspingTask,
+    "BoxStacking": BoxStackingTask,
 }
 
 

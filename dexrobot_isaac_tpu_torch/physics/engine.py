@@ -6,11 +6,11 @@ readable batched reference that the CUDA lane-physics kernel
 engine is for `physics/pallas_step.py` in the JAX package. One substep runs
 forward kinematics over the 26-DOF tree, penalty contacts (hand spheres vs
 ground, pruned finger self-collision pairs, spheres vs the free box, box
-corners vs ground), the CRBA mass matrix, the implicit-PD solve (dense
-Cholesky here; the kernel factors the sparse LTL), joint-limit projection and
-box integration, and with `SimParams.coriolis` the RNEA velocity-product
-bias. The second box is not ported yet: the engine raises on
-`SimParams.has_box2`.
+corners vs ground; with `SimParams.has_box2` also spheres vs the second box,
+its corners vs ground and the symmetric cube-cube corner narrowphase), the
+CRBA mass matrix, the implicit-PD solve (dense Cholesky here; the kernel
+factors the sparse LTL), joint-limit projection and box integration, and
+with `SimParams.coriolis` the RNEA velocity-product bias.
 
 `make_control_step` is the control step the env runs: the lane-physics
 kernel K2 (`physics/lane_step.py`), or with `SimParams.coriolis`, which K2
@@ -37,6 +37,7 @@ from dexrobot_isaac_tpu_torch.models.dexhand021 import (
 from dexrobot_isaac_tpu_torch.ops import linalg
 from dexrobot_isaac_tpu_torch.ops import quat as qm
 from dexrobot_isaac_tpu_torch.physics.types import (
+    BOX2_FIELDS,
     DRSample,
     KinematicsOut,
     PhysicsState,
@@ -49,6 +50,8 @@ from dexrobot_isaac_tpu_torch.utils.device import resolve_device
 class StepInfo:
     body_contact_force: torch.Tensor  # (N, B, 3) net contact force per hand body
     box_contact_force: torch.Tensor   # (N, 3) net contact force on the box
+    # (N, 3) net contact force on the second box (SimParams.has_box2)
+    box2_contact_force: torch.Tensor | None = None
 
 
 # ----------------------------------------------------------------------
@@ -313,8 +316,8 @@ class HandPhysics:
         self.model = model or build_hand_model()
         self.params = params or SimParams()
         p = self.params
-        if p.has_box2:
-            raise NotImplementedError("SimParams.has_box2 is not ported yet")
+        if p.has_box2 and not p.has_box:
+            raise ValueError("SimParams.has_box2 requires has_box")
         self.device = resolve_device(device)
         m = self.model
         B = m.num_bodies
@@ -360,6 +363,8 @@ class HandPhysics:
         self.t["sc_i"], self.t["sc_j"] = t(self.sc_i), t(self.sc_j)
         if p.has_box:
             self.box_inertia = p.box_mass * p.box_size**2 / 6.0
+        if p.has_box2:
+            self.box2_inertia = p.box2_mass * p.box2_size**2 / 6.0
         self.substep_dt = p.dt / p.substeps
 
     # ------------------------------------------------------------------
@@ -475,13 +480,14 @@ class HandPhysics:
         ft = -vt / (vt_norm[..., None] + 1e-6) * ft_mag[..., None]
         return fn_mag[..., None] * normal + ft
 
-    def _sphere_box(self, sp, sv, st: PhysicsState, half, box_mass, box_inertia,
-                    mu, g_kick):
-        """Spheres (N,S,3) vs the free cube. Returns (force on spheres,
-        force on box (N,3), torque on box (N,3))."""
+    def _sphere_box(self, sp, sv, box, half, box_mass, box_inertia, mu, g_kick):
+        """Spheres (N,S,3) vs one free cube, `box` = (pos, quat, linvel,
+        angvel). Returns (force on spheres, force on box (N,3), torque on box
+        (N,3))."""
+        box_pos, box_quat, box_linvel, box_angvel = box
         r = self.t["sphere_radius"]
-        Rb = qm.quat_to_rotmat(st.box_quat)                        # (N,3,3)
-        local = torch.einsum("nsi,nij->nsj", sp - st.box_pos[:, None], Rb)
+        Rb = qm.quat_to_rotmat(box_quat)                           # (N,3,3)
+        local = torch.einsum("nsi,nij->nsj", sp - box_pos[:, None], Rb)
         closest = local.clamp(-half, half)
         d = local - closest
         dist = _norm(d)
@@ -496,7 +502,7 @@ class HandPhysics:
         n_world = torch.einsum("nsj,nij->nsi", torch.where(outside[..., None], n_out, n_in), Rb)
         surf = torch.where(outside[..., None], closest, local)
         r_c = torch.einsum("nsj,nij->nsi", surf, Rb)
-        rel = sv - (st.box_linvel[:, None] + _cross(st.box_angvel[:, None], r_c))
+        rel = sv - (box_linvel[:, None] + _cross(box_angvel[:, None], r_c))
         rel_pred = rel - g_kick
         share = torch.clamp((depth_b > 0.0).to(sp.dtype).sum(-1, keepdim=True), min=1.0)
         inv_bm = (1.0 / box_mass)[:, None]
@@ -513,19 +519,61 @@ class HandPhysics:
         react = -f_box
         return f_box, react.sum(1), _cross(r_c, react).sum(1)
 
-    def _box_ground(self, st: PhysicsState, half, box_mass, box_inertia, mu, g_kick):
-        Rb = qm.quat_to_rotmat(st.box_quat)
+    def _box_ground(self, box, half, box_mass, box_inertia, mu, g_kick):
+        """One free cube's corners vs the ground plane. Returns (force on
+        box (N,3), torque on box (N,3))."""
+        box_pos, box_quat, box_linvel, box_angvel = box
+        Rb = qm.quat_to_rotmat(box_quat)
         corners_l = torch.as_tensor(_CORNER_SIGNS, device=Rb.device) * half
         r_c8 = torch.einsum("cj,nij->nci", corners_l, Rb)
-        corners_w = st.box_pos[:, None] + r_c8
-        vc = st.box_linvel[:, None] + _cross(st.box_angvel[:, None], corners_w - st.box_pos[:, None])
+        corners_w = box_pos[:, None] + r_c8
+        vc = box_linvel[:, None] + _cross(box_angvel[:, None], corners_w - box_pos[:, None])
         n_up = torch.zeros_like(corners_w)
         n_up[..., 2] = 1.0
-        r_c8 = corners_w - st.box_pos[:, None]
+        r_c8 = corners_w - box_pos[:, None]
         ang8 = (_cross(r_c8, n_up) ** 2).sum(-1) * (1.0 / box_inertia)[:, None]
         m_corner = 1.0 / (4.0 * (1.0 / box_mass)[:, None] + ang8)
         f_c = self._penalty_force(-corners_w[..., 2], n_up, vc + g_kick, mu, m_corner)
         return f_c.sum(1), _cross(r_c8, f_c).sum(1)
+
+    def _corners_vs_box(self, a, half_a, mass_a, inertia_a, b, half_b, mass_b, inertia_b,
+                        mu):
+        """Corners of free cube A vs free cube B (vertex narrowphase): a
+        corner of A inside B is pushed out along B's nearest face normal.
+        `a`, `b` = (pos, quat, linvel, angvel). Returns (force on A, torque
+        on A, force on B, torque on B), each (N,3)."""
+        pos_a, quat_a, lin_a, ang_a = a
+        pos_b, quat_b, lin_b, ang_b = b
+        RA, RB = qm.quat_to_rotmat(quat_a), qm.quat_to_rotmat(quat_b)
+        corners_l = torch.as_tensor(_CORNER_SIGNS, device=RA.device) * half_a
+        corners_w = pos_a[:, None] + torch.einsum("cj,nij->nci", corners_l, RA)  # (N,8,3)
+        local = torch.einsum("nci,nij->ncj", corners_w - pos_b[:, None], RB)
+        face_gap = half_b - local.abs()
+        depth = face_gap.amin(-1)
+        min_ax = face_gap.argmin(-1, keepdim=True)
+        sign = torch.sign(local.gather(-1, min_ax))[..., 0]
+        n_local = torch.nn.functional.one_hot(min_ax[..., 0], 3).to(local.dtype) * torch.where(
+            sign == 0.0, torch.ones_like(sign), sign)[..., None]
+        n_world = torch.einsum("ncj,nij->nci", n_local, RB)        # out of B, toward A
+        r_a = corners_w - pos_a[:, None]
+        r_b = corners_w - pos_b[:, None]
+        rel = (lin_a[:, None] + _cross(ang_a[:, None], r_a)) - (
+            lin_b[:, None] + _cross(ang_b[:, None], r_b))
+        share = torch.clamp((depth > 0.0).to(local.dtype).sum(-1, keepdim=True), min=1.0)
+        ang_na = (_cross(r_a, n_world) ** 2).sum(-1) / inertia_a[:, None]
+        ang_nb = (_cross(r_b, n_world) ** 2).sum(-1) / inertia_b[:, None]
+        m_red = 1.0 / (share / mass_a[:, None] + ang_na + share / mass_b[:, None] + ang_nb)
+        f = self._penalty_force(depth, n_world, rel, mu, m_red)   # on A
+        return (f.sum(1), _cross(r_a, f).sum(1), -f.sum(1), _cross(r_b, -f).sum(1))
+
+    def _box_box(self, a, b, half_a, mass_a, inertia_a, half_b, mass_b, inertia_b, mu):
+        """Symmetric cube-cube contact: the corners of each cube against the
+        other. Returns (force_a, torque_a, force_b, torque_b)."""
+        fa1, ta1, fb1, tb1 = self._corners_vs_box(a, half_a, mass_a, inertia_a,
+                                                  b, half_b, mass_b, inertia_b, mu)
+        fb2, tb2, fa2, ta2 = self._corners_vs_box(b, half_b, mass_b, inertia_b,
+                                                  a, half_a, mass_a, inertia_a, mu)
+        return fa1 + fa2, ta1 + ta2, fb1 + fb2, tb1 + tb2
 
     def _contacts(self, kin: KinematicsOut, st: PhysicsState, dr: DRSample):
         p, T = self.params, self.t
@@ -551,21 +599,42 @@ class HandPhysics:
         n = sp.shape[0]
         box_f = torch.zeros(n, 3, dtype=sp.dtype, device=sp.device)
         box_t = torch.zeros_like(box_f)
+        box2_f = box2_t = None
         if p.has_box:
             g_kick = torch.tensor([0.0, 0.0, p.gravity * self.substep_dt],
                                   dtype=sp.dtype, device=sp.device)
+            box = (st.box_pos, st.box_quat, st.box_linvel, st.box_angvel)
             bm = p.box_mass * dr.box_mass_scale
             bi = self.box_inertia * dr.box_mass_scale
             f_box, bf, bt = self._sphere_box(
-                sp, sv, st, p.box_size / 2.0, bm, bi,
+                sp, sv, box, p.box_size / 2.0, bm, bi,
                 0.5 * (p.hand_friction + p.box_friction) * fr, g_kick)
             force = force + f_box
             gf, gt = self._box_ground(
-                st, p.box_size / 2.0, bm, bi,
+                box, p.box_size / 2.0, bm, bi,
                 0.5 * (p.box_friction + p.ground_friction) * fr, g_kick)
             box_f = box_f + bf + gf
             box_t = box_t + bt + gt
-        return force, sp, box_f, box_t
+        if p.has_box2:
+            # the second cube: hand, ground and cube-cube contact; DR's mass
+            # scale is shared with the first box (one scale per env)
+            box2 = tuple(getattr(st, k) for k in BOX2_FIELDS)
+            b2m = p.box2_mass * dr.box_mass_scale
+            b2i = self.box2_inertia * dr.box_mass_scale
+            f_b2, box2_f, box2_t = self._sphere_box(
+                sp, sv, box2, p.box2_size / 2.0, b2m, b2i,
+                0.5 * (p.hand_friction + p.box2_friction) * fr, g_kick)
+            force = force + f_b2
+            gf, gt = self._box_ground(
+                box2, p.box2_size / 2.0, b2m, b2i,
+                0.5 * (p.box2_friction + p.ground_friction) * fr, g_kick)
+            box2_f, box2_t = box2_f + gf, box2_t + gt
+            fa, ta, fb, tb = self._box_box(
+                box, box2, p.box_size / 2.0, bm, bi, p.box2_size / 2.0, b2m, b2i,
+                0.5 * (p.box_friction + p.box2_friction) * fr)
+            box_f, box_t = box_f + fa, box_t + ta
+            box2_f, box2_t = box2_f + fb, box2_t + tb
+        return force, sp, box_f, box_t, box2_f, box2_t
 
     def _segment_sum(self, x):
         n = x.shape[0]
@@ -578,7 +647,7 @@ class HandPhysics:
         h = self.substep_dt
         kin = self.fk(st.q, st.qd, spawn)
         S = self._motion_subspace(kin)
-        force, pt, box_f, box_t = self._contacts(kin, st, dr)
+        force, pt, box_f, box_t, box2_f, box2_t = self._contacts(kin, st, dr)
         body_w = torch.cat([self._segment_sum(_cross(pt, force)),
                             self._segment_sum(force)], -1)         # (N,B,6)
         R = qm.quat_to_rotmat(kin.body_quat)
@@ -613,19 +682,28 @@ class HandPhysics:
         zero = torch.zeros_like(qd_new)
         qd_new = torch.where(low_hit & (qd_new < 0), zero, qd_new)
         qd_new = torch.where(high_hit & (qd_new > 0), zero, qd_new)
+        new = dataclasses.replace(st, q=q_new, qd=qd_new)
         if p.has_box:
-            bm = (p.box_mass * dr.box_mass_scale)[:, None]
-            bi = (self.box_inertia * dr.box_mass_scale)[:, None]
-            gvec = torch.tensor([0.0, 0.0, p.gravity], dtype=q_new.dtype, device=q_new.device)
-            lin = st.box_linvel + h * (box_f * (1.0 / bm) + gvec)
-            ang = st.box_angvel + h * (1.0 / bi) * box_t
-            lin = lin * torch.clamp(10.0 / (_norm(lin)[:, None] + 1e-9), max=1.0)
-            ang = ang * torch.clamp(64.0 / (_norm(ang)[:, None] + 1e-9), max=1.0)
-            new = PhysicsState(q_new, qd_new, st.box_pos + h * lin,
-                               qm.quat_integrate(st.box_quat, ang, h), lin, ang)
-        else:
-            new = dataclasses.replace(st, q=q_new, qd=qd_new)
-        return new, StepInfo(self._segment_sum(force), box_f)
+            new.box_pos, new.box_quat, new.box_linvel, new.box_angvel = self._integrate_box(
+                (st.box_pos, st.box_quat, st.box_linvel, st.box_angvel), box_f, box_t,
+                p.box_mass * dr.box_mass_scale, self.box_inertia * dr.box_mass_scale)
+        if p.has_box2:
+            new.box2_pos, new.box2_quat, new.box2_linvel, new.box2_angvel = self._integrate_box(
+                tuple(getattr(st, k) for k in BOX2_FIELDS), box2_f, box2_t,
+                p.box2_mass * dr.box_mass_scale, self.box2_inertia * dr.box_mass_scale)
+        return new, StepInfo(self._segment_sum(force), box_f, box2_f)
+
+    def _integrate_box(self, box, f, t, mass, inertia):
+        """Semi-implicit Euler of one free cube (isotropic inertia) with
+        PhysX-style velocity caps (10 m/s, 64 rad/s)."""
+        pos, quat, lin0, ang0 = box
+        h = self.substep_dt
+        gvec = torch.tensor([0.0, 0.0, self.params.gravity], dtype=f.dtype, device=f.device)
+        lin = lin0 + h * (f * (1.0 / mass[:, None]) + gvec)
+        ang = ang0 + h * (1.0 / inertia[:, None]) * t
+        lin = lin * torch.clamp(10.0 / (_norm(lin)[:, None] + 1e-9), max=1.0)
+        ang = ang * torch.clamp(64.0 / (_norm(ang)[:, None] + 1e-9), max=1.0)
+        return pos + h * lin, qm.quat_integrate(quat, ang, h), lin, ang
 
     def _op_control_step(self, n_physics_steps: int, solve):
         """fn(state, targets, spawn, dr) -> (state, StepInfo of the last

@@ -2,9 +2,11 @@
 
 The port of `dexrobot_isaac_tpu/physics/pallas_step.py` (`build_lane_sim`,
 `build_control_step`). The kernels are `csrc/control_step.cu` over the
-shared per-env physics of `csrc/lane_physics.cuh`; this module builds the
-model buffer they read (`LaneModel`, in the layout the compiled library
-reports) and wraps the launches:
+shared per-env physics of `csrc/lane_physics.cuh`, built twice: for scenes
+with one box (`control_step`) and with the second box (`control_step_box2`,
+`SimParams.has_box2`); the engine's scene picks the build. This module
+builds the model buffer they read (`LaneModel`, in the layout the compiled
+library reports) and wraps the launches:
 
 - `build_control_step(engine, n_physics_steps)` -> fn(state, targets, spawn,
   dr) -> (state, StepInfo, KinematicsOut): `n_physics_steps x substeps`
@@ -25,7 +27,13 @@ import numpy as np
 import torch
 
 from dexrobot_isaac_tpu_torch.physics.engine import HandPhysics, StepInfo
-from dexrobot_isaac_tpu_torch.physics.types import DRSample, KinematicsOut, PhysicsState
+from dexrobot_isaac_tpu_torch.physics.types import (
+    DRSample,
+    KinematicsOut,
+    PhysicsState,
+    box_rows,
+    from_box_rows,
+)
 from dexrobot_isaac_tpu_torch.utils import kernel_build as kb
 
 
@@ -76,6 +84,13 @@ def lane_model_array(engine: HandPhysics, n_physics_steps: int, lib: ctypes.CDLL
     r["box_mass"] = p.box_mass
     r["box_inertia"] = p.box_mass * p.box_size ** 2 / 6.0 if p.has_box else 1.0
     r["half"] = p.box_size / 2.0
+    r["has_box2"] = int(p.has_box2)
+    r["mu_hb2"] = 0.5 * (p.hand_friction + p.box2_friction)
+    r["mu_b2g"] = 0.5 * (p.box2_friction + p.ground_friction)
+    r["mu_bb"] = 0.5 * (p.box_friction + p.box2_friction)
+    r["box2_mass"] = p.box2_mass
+    r["box2_inertia"] = p.box2_mass * p.box2_size ** 2 / 6.0
+    r["half2"] = p.box2_size / 2.0
     parent = [int(x) for x in m.parent]
     r["parent"][:nb] = parent
     r["is_prism"][:nb] = engine.is_prismatic
@@ -94,11 +109,15 @@ def lane_model_array(engine: HandPhysics, n_physics_steps: int, lib: ctypes.CDLL
             raise ValueError("tree deeper than the lane kernel's static depth")
         r["depth"][b] = len(chain)
         anc[b, :len(chain)] = sorted(chain)
-    max_m, lanes = ctypes.c_int(), ctypes.c_int()
-    lib.lane_caps(ctypes.byref(max_m), ctypes.byref(lanes))
+    max_m, lanes, box2 = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    lib.lane_caps(ctypes.byref(max_m), ctypes.byref(lanes), ctypes.byref(box2))
     if int(r["depth"][:nb].sum()) > max_m.value:
         raise ValueError("mass matrix larger than the lane kernel's static size")
-    _tree_tables(r, parent, engine.sphere_body, engine.sc_i, engine.sc_j, lanes.value)
+    if bool(box2.value) != p.has_box2:
+        raise ValueError(f"a kernel library built {'with' if box2.value else 'without'} the "
+                         f"second box for a scene {'with' if p.has_box2 else 'without'} it")
+    _tree_tables(r, parent, engine.sphere_body, engine.sc_i, engine.sc_j, lanes.value,
+                 p.has_box2)
     for key, src in (("axis", "axis"), ("apos", "attach_pos"), ("aquat", "attach_quat"),
                      ("post", "post_quat"), ("mass", "mass"), ("com", "com"),
                      ("inertia", "inertia"), ("lower", "lower"), ("upper", "upper"),
@@ -118,12 +137,13 @@ def lane_model_array(engine: HandPhysics, n_physics_steps: int, lib: ctypes.CDLL
     return r
 
 
-def _tree_tables(r: np.ndarray, parent, sphere_body, sc_i, sc_j, n_lanes: int) -> None:
+def _tree_tables(r: np.ndarray, parent, sphere_body, sc_i, sc_j, n_lanes: int,
+                 has_box2: bool = False) -> None:
     """The warp design's tables of the tree (lane_physics.cuh): levels,
     mass-matrix row offsets, the bodies of each lane's slots, the LTL
     steps' update targets, each body's descendants (ascending), children
-    (descending) and contacts (its spheres, then its pairs, in index
-    order)."""
+    (descending) and contacts (its spheres, then its pairs, then with the
+    second box its spheres against it, in index order)."""
     nb, ns = len(parent), len(sphere_body)
     depth = r["depth"][:nb]
     r["n_levels"] = int(depth.max())
@@ -173,6 +193,8 @@ def _tree_tables(r: np.ndarray, parent, sphere_body, sc_i, sc_j, n_lanes: int) -
                 cons.append((ns + p) | (int(si) << 8))
             if sphere_body[sj] == b:
                 cons.append((ns + p) | (int(sj) << 8) | (1 << 16))
+        if has_box2:
+            cons += [(ns + len(sc_i) + j) | (j << 8) for j in range(ns) if sphere_body[j] == b]
         if len(kids) > maxch or len(cons) > maxbc:
             raise ValueError("tree or contacts exceed the lane kernel's static sizes")
         r["nchild"][b], r["nbc"][b] = len(kids), len(cons)
@@ -208,11 +230,18 @@ def substep_flops(r: np.ndarray) -> int:
     n_mass = int((r["mass"][:nb] > 0).sum())
     f = fk_flops(r) + ns * (_QROT + 9 + _CROSS)               # FK, sphere pos/vel
     f += ns * (2 + _CF) + ns * (12 + _CROSS)                 # ground, accumulate
+    geo = _MATVEC + 25
+    sphere_box = ns * (geo + 2 * _MATVEC + 4 * _CROSS + 4 * _DOT + 40 + _CF)
+    corners_ground = 8 * (_MATVEC + 3 * _CROSS + _DOT + 14 + _CF)
     if int(r["has_box"]):
-        geo = _MATVEC + 25
         f += 4 + _ROTMAT + ns * geo                           # active-contact pass
-        f += ns * (geo + 2 * _MATVEC + 4 * _CROSS + 4 * _DOT + 40 + _CF)
-        f += 8 * (_MATVEC + 3 * _CROSS + _DOT + 14 + _CF)     # corners vs ground
+        f += sphere_box + corners_ground
+    if int(r["has_box2"]):
+        f += 4 + _ROTMAT + ns * geo + sphere_box + corners_ground + ns * 3  # + hand sums
+        corner_box = 2 * _MATVEC + 12                         # corner, local, gaps, depth
+        f += 16 * corner_box + 4                              # flags pass, masses
+        f += 16 * (corner_box + _MATVEC + 5 + 4 * _CROSS + 2 * _DOT + 9 + _CF + 2 * _CROSS)
+        f += 2 * 3 * (ns + 8) + 4 * 16 * 3 + 4 * 3 + 80      # box sums, integration
     f += n_sc * (_DOT + 13 + _CF + 2 * (12 + _CROSS))       # finger pairs
     f += n_mass * (_ROTMAT + _MATVEC + 7 + _CROSS)           # gravity
     f += (nb - 1) * 6 + nb * (2 * _DOT + 1 + _CROSS)         # subtree sums, Q
@@ -266,8 +295,13 @@ def shared_layout(lib: ctypes.CDLL):
     return tuple(v.value for v in vals)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = kb.load("control_step")
+def build_name(engine: HandPhysics) -> str:
+    """The K2 library that runs this engine's scene."""
+    return "control_step_box2" if engine.params.has_box2 else "control_step"
+
+
+def _lib(engine: HandPhysics) -> ctypes.CDLL:
+    lib = kb.load(build_name(engine))
     if not getattr(lib, "_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.control_step_launch.argtypes = [P] * 13 + [I, P]
@@ -292,18 +326,21 @@ def require_cuda(x: torch.Tensor):
 
 def control_step_rows(engine, n_physics_steps, q, qd, tgt, spawn, box, dr):
     """The raw K2 launch on SoA rows: q, qd, tgt (26, N), spawn (3, N), box
-    (13, N), dr (4, N) -> (q, qd, box, cf (78, N), bf (3, N), kin (564, N))."""
-    lib = _lib()
+    (13, N; 26 with the second box), dr (4, N) -> (q, qd, box, cf (78, N),
+    bf (3, N; 6 with the second box), kin (564, N))."""
+    name = build_name(engine)
+    lib = _lib(engine)
     nb, n = engine.model.num_bodies, q.shape[1]
     nsite = len(engine.site_body)
+    nbox = 26 if engine.params.has_box2 else 13
     buf = model_buffer(engine, n_physics_steps, lib, q.device)
     ins = [check_rows(x, r, n) for x, r in
-           ((q, nb), (qd, nb), (tgt, nb), (spawn, 3), (box, 13), (dr, 4))]
+           ((q, nb), (qd, nb), (tgt, nb), (spawn, 3), (box, nbox), (dr, 4))]
     e = lambda r: torch.empty(r, n, dtype=torch.float32, device=q.device)
-    outs = [e(nb), e(nb), e(13), e(nb * 3), e(3), e(nb * 19 + nsite * 7)]
+    outs = [e(nb), e(nb), e(nbox), e(nb * 3), e(nbox // 13 * 3), e(nb * 19 + nsite * 7)]
     kb.check(lib.control_step_launch(buf.data_ptr(), *ins, *(o.data_ptr() for o in outs),
-                                     n, kb.stream_ptr(q.device)), "control_step")
-    kb.LAUNCHES["control_step"] += 1
+                                     n, kb.stream_ptr(q.device)), name)
+    kb.LAUNCHES[name] += 1
     return outs
 
 
@@ -324,20 +361,21 @@ def build_control_step(engine: HandPhysics, n_physics_steps: int):
     the kernel on CUDA tensors, `engine.plain_control_step` on CPU ones."""
     plain = engine.plain_control_step(n_physics_steps)
     nb, nsite = engine.model.num_bodies, len(engine.site_body)
+    has_box2 = engine.params.has_box2
 
     def fn(state: PhysicsState, targets, spawn, dr: DRSample):
         if state.q.device.type == "cpu":
             return plain(state, targets, spawn, dr)
         require_cuda(state.q)
         T = lambda x: x.float().t().contiguous()
-        box = torch.cat([state.box_pos, state.box_quat, state.box_linvel, state.box_angvel], 1)
         q, qd, bo, cf, bf, kin = control_step_rows(
-            engine, n_physics_steps, T(state.q), T(state.qd), T(targets), T(spawn), T(box),
-            dr.rows().contiguous())
+            engine, n_physics_steps, T(state.q), T(state.qd), T(targets), T(spawn),
+            T(box_rows(state, has_box2)), dr.rows().contiguous())
         n = q.shape[1]
-        bo = bo.t()
-        new = PhysicsState(q.t(), qd.t(), bo[:, 0:3], bo[:, 3:7], bo[:, 7:10], bo[:, 10:13])
-        return new, StepInfo(cf.t().reshape(n, nb, 3), bf.t()), unpack_kin(kin, nb, nsite)
+        new = PhysicsState(q.t(), qd.t(), **from_box_rows(bo.t()))
+        bf = bf.t()
+        info = StepInfo(cf.t().reshape(n, nb, 3), bf[:, :3], bf[:, 3:6] if has_box2 else None)
+        return new, info, unpack_kin(kin, nb, nsite)
 
     return fn
 
@@ -351,7 +389,7 @@ def min_site_z(engine: HandPhysics, dof_pos: torch.Tensor, spawn: torch.Tensor,
     if dof_pos.device.type == "cpu":
         return engine.min_site_z(dof_pos, spawn, site_ids)
     require_cuda(dof_pos)
-    lib = _lib()
+    lib = _lib(engine)
     buf = model_buffer(engine, 1, lib, dof_pos.device)
     q = dof_pos.float().t().contiguous()
     sp = spawn.float().t().contiguous()

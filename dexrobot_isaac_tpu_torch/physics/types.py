@@ -7,7 +7,7 @@ dataclasses of tensors with the leading dim = num_envs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -22,6 +22,32 @@ class PhysicsState:
     box_quat: torch.Tensor     # (N, 4) xyzw
     box_linvel: torch.Tensor   # (N, 3)
     box_angvel: torch.Tensor   # (N, 3)
+    # the second free box (SimParams.has_box2); None in single-box scenes
+    box2_pos: Optional[torch.Tensor] = None     # (N, 3)
+    box2_quat: Optional[torch.Tensor] = None    # (N, 4) xyzw
+    box2_linvel: Optional[torch.Tensor] = None  # (N, 3)
+    box2_angvel: Optional[torch.Tensor] = None  # (N, 3)
+
+
+BOX_FIELDS = ("box_pos", "box_quat", "box_linvel", "box_angvel")
+BOX2_FIELDS = ("box2_pos", "box2_quat", "box2_linvel", "box2_angvel")
+
+
+def box_rows(state: PhysicsState, has_box2: bool) -> torch.Tensor:
+    """(N, 13), or (N, 26) with the second box: the kernels' box operand."""
+    names = BOX_FIELDS + (BOX2_FIELDS if has_box2 else ())
+    return torch.cat([getattr(state, k) for k in names], 1)
+
+
+def from_box_rows(box: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Inverse of `box_rows`: {field: (N, k)} of the 13 or 26 columns."""
+    names = BOX_FIELDS + (BOX2_FIELDS if box.shape[1] == 26 else ())
+    out, o = {}, 0
+    for k in names:
+        w = 4 if k.endswith("quat") else 3
+        out[k] = box[:, o:o + w]
+        o += w
+    return out
 
 
 @dataclasses.dataclass
@@ -82,8 +108,7 @@ class SimParams:
     box_size: float = 0.05
     box_mass: float = 0.1
     box_friction: float = 1.0
-    # the second free box exists in the JAX engine; the port raises on it
-    # (a later slice)
+    # the second free box (requires has_box)
     has_box2: bool = False
     box2_size: float = 0.08
     box2_mass: float = 0.5

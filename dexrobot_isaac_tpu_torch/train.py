@@ -5,6 +5,7 @@ The port of the repository's `train.py`, over the port's JSON config twins:
     python -m dexrobot_isaac_tpu_torch.train task=BlindGrasping numEnvs=4096
     python -m dexrobot_isaac_tpu_torch.train task=BlindGrasping numEnvs=4 maxIterations=2 device=cpu
     python -m dexrobot_isaac_tpu_torch.train test=true checkpoint=latest task=BlindGrasping
+    python -m dexrobot_isaac_tpu_torch.train task=BoxStacking numEnvs=4096
 
 `key=value` overrides, config groups and aliases as `train.py`. It runs on
 the CUDA card (the config's `device`, whatever it names, unless it is

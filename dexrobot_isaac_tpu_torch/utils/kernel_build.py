@@ -1,8 +1,10 @@
 """Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
-Each `csrc/<name>.cu` is compiled on first use into
-`dexrobot_isaac_tpu_torch/_build/<name>-<hash>.so` (the hash covers the
-sources and flags, so an edited source rebuilds) with a plain C interface:
+Each build of `BUILDS` (a `csrc/<source>.cu` with its compile-time
+defines: the two-cube lane physics, K1's task) is compiled on first use
+into `dexrobot_isaac_tpu_torch/_build/<build>-<hash>.so` (the hash covers
+the sources, flags and defines, so an edited source rebuilds) with a plain
+C interface:
 pointers and the stream go in as `c_void_p`, and every launcher returns
 `cudaGetLastError()`. `nvcc` starts one nvcc per source at once (the
 probes of `utils/` build their variants with it too); `device_ms` times a
@@ -22,7 +24,15 @@ from typing import Dict, Hashable, Iterable, List, Tuple
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(CSRC), "_build")
-SOURCES = ("control_step", "fused_step", "spd_solve")
+# build -> (source in csrc/, its defines); each build is its own library
+BUILDS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
+    "control_step": ("control_step", ()),                       # K2, one box
+    "control_step_box2": ("control_step", ("-DLP_HAS_BOX2=1",)),  # K2, two boxes
+    "fused_step": ("fused_step", ()),                           # K1, BlindGrasping
+    "fused_step_base": ("fused_step", ("-DFS_TASK=0",)),          # K1, BaseTask
+    "fused_step_stacking": ("fused_step", ("-DFS_TASK=2", "-DLP_HAS_BOX2=1")),  # K1, BoxStacking
+    "spd_solve": ("spd_solve", ()),                             # K3
+}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -30,9 +40,9 @@ NVCC_FLAGS = [
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
-# launches per kernel: each wrapper adds one where it launches its kernel
-LAUNCHES: Dict[str, int] = {"control_step": 0, "min_site_z": 0, "fused_step": 0,
-                            "spd_solve": 0}
+# launches per kernel build: each wrapper adds one where it launches its
+# kernel (min_site_z, in either control_step build, counts apart)
+LAUNCHES: Dict[str, int] = {**{b: 0 for b in BUILDS}, "min_site_z": 0}
 
 
 def reset_launches() -> None:
@@ -49,7 +59,7 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + list(BUILDS[name][1])).encode())
     for fn in sorted(os.listdir(CSRC)):
         if fn.endswith((".cu", ".cuh")):
             with open(os.path.join(CSRC, fn), "rb") as f:
@@ -57,13 +67,13 @@ def lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 
 
-def nvcc(jobs: Dict[Hashable, Tuple[str, str]]) -> Dict[Hashable, Tuple[float, str]]:
-    """Compile each job {key: (source, library)} with NVCC_FLAGS, one nvcc
-    each, all started together. Returns {key: (seconds, nvcc's output)};
-    raises, once every nvcc has ended, if one failed."""
+def nvcc(jobs: Dict[Hashable, tuple]) -> Dict[Hashable, Tuple[float, str]]:
+    """Compile each job {key: (source, library[, defines])} with NVCC_FLAGS,
+    one nvcc each, all started together. Returns {key: (seconds, nvcc's
+    output)}; raises, once every nvcc has ended, if one failed."""
     procs = {}
-    for key, (src, out) in jobs.items():
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", out, src]
+    for key, (src, out, *defines) in jobs.items():
+        cmd = [_nvcc(), *NVCC_FLAGS, *(defines[0] if defines else ()), "-o", out, src]
         procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True), time.perf_counter())
     res, failed = {}, []
@@ -83,13 +93,14 @@ def ptxas_lines(log: str) -> List[str]:
             if any(s in ln for s in ("registers", "spill", "stack frame"))]
 
 
-def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
-    """Compile every source that is not built yet (`nvcc`). Returns {name:
+def build_all(names: Iterable[str] = BUILDS) -> Dict[str, float]:
+    """Compile every build that is not built yet (`nvcc`). Returns {name:
     seconds} of the builds that ran; the ptxas report (registers, spills,
     stack) goes to `<lib>.ptxas.txt`."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     todo = [n for n in names if not os.path.exists(lib_path(n))]
-    res = nvcc({n: (os.path.join(CSRC, n + ".cu"), lib_path(n) + ".tmp") for n in todo})
+    res = nvcc({n: (os.path.join(CSRC, BUILDS[n][0] + ".cu"), lib_path(n) + ".tmp",
+                    BUILDS[n][1]) for n in todo})
     for name, (_, log) in res.items():
         with open(lib_path(name) + ".ptxas.txt", "w") as f:
             f.write(log)

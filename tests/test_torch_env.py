@@ -35,6 +35,8 @@ from dexrobot_isaac_tpu.factory import make_env as jax_make_env
 from dexrobot_isaac_tpu.utils.config import load_config as jax_load_config
 from dexrobot_isaac_tpu_torch import convert
 from dexrobot_isaac_tpu_torch.envs.fused_step import FusedUnsupported
+from dexrobot_isaac_tpu_torch.envs.tasks.api import TaskStep
+from dexrobot_isaac_tpu_torch.envs.tasks.base_task import BaseTask
 from dexrobot_isaac_tpu_torch.factory import make_env
 from dexrobot_isaac_tpu_torch.utils.config import load_config
 from tests import golden_scenario as gs
@@ -210,6 +212,19 @@ def test_coriolis_step_fn_matches_jax(coriolis_runs, t):
 
 
 def test_fused_step_refuses_unported_task():
+    """BoxPushing is not ported yet: the factory refuses it, and a task
+    without a K1 build of its own (a stand-in of that name that overrides
+    BaseTask's step) makes `make_fused` raise FusedUnsupported."""
+    with pytest.raises(ValueError, match="BoxPushing"):
+        make_env(load_config(["task=BoxPushing", "numEnvs=2"]), device="cpu")
+
+    class BoxPushing(BaseTask):
+        name = "BoxPushing"
+
+        def compute_step(self, obs_dict, task_states, *args, **kwargs):
+            return TaskStep({}, task_states, {}, {}, {})
+
     env = make_env(load_config(["task=BaseTask", "numEnvs=2"]), device="cpu")
-    with pytest.raises(FusedUnsupported):
+    env.comps.task = BoxPushing(env.comps.task.cfg)
+    with pytest.raises(FusedUnsupported, match="BoxPushing"):
         env.make_fused()

@@ -11,7 +11,11 @@ plain engine, and K1 against the TPU-recorded golden trajectory (obs atol
 2e-4, reward/components atol 1e-3, done exact) and the plain fused step; and the warp design itself: every warp phase gives the
 same bits whichever order its lanes run in (a phase that reads a value
 another lane writes in the same phase does not), and each env's slot of
-shared memory stays within the budget the design states.
+shared memory stays within the budget the design states. Every build of
+`kernel_build.BUILDS` but K3's is built here with its defines: K2 with the
+second box (held to the plain engine on a two-cube state), and K1's
+BaseTask and BoxStacking builds (held to the plain fused step); the
+BlindGrasping builds keep their slot sizes.
 """
 
 import ctypes
@@ -26,9 +30,9 @@ from dexrobot_isaac_tpu_torch.envs import fused_step as fsm
 from dexrobot_isaac_tpu_torch.factory import make_env
 from dexrobot_isaac_tpu_torch.physics import lane_step as ls
 from dexrobot_isaac_tpu_torch.physics.engine import HandPhysics
-from dexrobot_isaac_tpu_torch.physics.types import SimParams
+from dexrobot_isaac_tpu_torch.physics.types import SimParams, box_rows
 from dexrobot_isaac_tpu_torch.utils.config import load_config
-from dexrobot_isaac_tpu_torch.utils.kernel_build import CSRC
+from dexrobot_isaac_tpu_torch.utils.kernel_build import BUILDS, CSRC
 from tests import golden_scenario as gs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -38,17 +42,20 @@ P, I = ctypes.c_void_p, ctypes.c_int
 
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
+    """Every K1 and K2 build, compiled for the host by g++ (all at once)."""
     out = tmp_path_factory.mktemp("host_kernels")
-    libs = {}
-    for name in ("control_step", "fused_step"):
-        so = str(out / f"{name}.so")
-        subprocess.run(["g++", "-x", "c++", "-O2", "-std=c++17", "-shared", "-fPIC", "-o", so,
-                        os.path.join(CSRC, name + ".cu")], check=True, timeout=300)
-        libs[name] = ctypes.CDLL(so)
-    libs["control_step"].control_step_host.argtypes = [P] * 13 + [I]
-    libs["control_step"].min_site_z_host.argtypes = [P, P, P, I, P, I]
-    libs["fused_step"].fused_step_host.argtypes = [P] * 13 + [I]
-    for lib in libs.values():
+    names = [b for b, (src, _) in BUILDS.items() if src in ("control_step", "fused_step")]
+    procs = {b: subprocess.Popen(["g++", "-x", "c++", "-O2", "-std=c++17", "-shared", "-fPIC",
+                                  *BUILDS[b][1], "-o", str(out / f"{b}.so"),
+                                  os.path.join(CSRC, BUILDS[b][0] + ".cu")]) for b in names}
+    assert all(p.wait(timeout=600) == 0 for p in procs.values())
+    libs = {b: ctypes.CDLL(str(out / f"{b}.so")) for b in names}
+    for b, lib in libs.items():
+        if BUILDS[b][0] == "control_step":
+            lib.control_step_host.argtypes = [P] * 13 + [I]
+            lib.min_site_z_host.argtypes = [P, P, P, I, P, I]
+        else:
+            lib.fused_step_host.argtypes = [P] * 13 + [I]
         lib.lane_order_host.argtypes = [I]
     return libs
 
@@ -89,11 +96,14 @@ def contact_state():
     ("control_step", "lane_model_layout"),
     ("fused_step", "lane_model_layout"),
     ("fused_step", "fused_config_layout"),
+    ("fused_step_stacking", "lane_model_layout"),
+    ("fused_step_stacking", "fused_config_layout"),
 ])
 def test_struct_layouts_match_the_wrappers(host_libs, contact_state, lib, fn):
     """The dtype read from a library's layout export tiles the struct with
-    4-byte fields and no gaps, both libraries agree on LaneModel, and the
-    wrapper fills every field it names (numpy raises on a missing one)."""
+    4-byte fields and no gaps, K1 and K2 of one scene agree on LaneModel,
+    and the wrapper fills every field it names (numpy raises on a missing
+    one)."""
     dt = ls.struct_dtype(getattr(host_libs[lib], fn))
     fields = sorted(dt.fields.values(), key=lambda f: f[1])
     ends = [off + f.itemsize for f, off in fields]
@@ -101,7 +111,12 @@ def test_struct_layouts_match_the_wrappers(host_libs, contact_state, lib, fn):
     assert all(f.base in (np.dtype("f4"), np.dtype("i4")) for f, _ in fields)
     env, fused, _, _ = contact_state
     if fn == "lane_model_layout":
-        assert dt == ls.struct_dtype(host_libs["control_step"].lane_model_layout)
+        k2 = "control_step_box2" if lib == "fused_step_stacking" else "control_step"
+        assert dt == ls.struct_dtype(host_libs[k2].lane_model_layout)
+        if lib == "fused_step_stacking":
+            with pytest.raises(ValueError, match="second box"):  # a one-box scene
+                ls.lane_model_array(env.comps.engine, 4, host_libs[lib])
+            return
         r = ls.lane_model_array(env.comps.engine, 4, host_libs[lib])
         assert int(r["total_substeps"]) == 4 * env.comps.engine.params.substeps
     else:
@@ -310,3 +325,110 @@ def test_shared_slot_within_budget(host_libs):
     # four blocks of envs (32 envs) and the card's 1 KB per block fit an SM's 228 KB
     assert 4 * (envs * budget + 1024) <= 233472 and envs * 4 == 32
     assert in_cap >= 231 and out_cap >= 104 + 158 + 5 + 39
+
+
+def test_blind_grasping_slots_unchanged(host_libs):
+    """The one-box builds' slots stay as they were: 5,960 bytes per env of K2,
+    1,536 of min_site_z, 6,996 of K1 (32 envs per SM on the card)."""
+    assert ls.shared_layout(host_libs["control_step"]) == (5960, 1536, 8, 7168)
+    assert fsm.shared_layout(host_libs["fused_step"])[:4] == (6996, 8, 7168, 240)
+
+
+@pytest.mark.parametrize("build,blocks", [("control_step_box2", 3), ("fused_step_stacking", 3),
+                                          ("fused_step_base", 4)])
+def test_task_build_slots_within_budget(host_libs, build, blocks):
+    """The two-box builds' slots fit 3 blocks of 8 envs per SM (24 envs),
+    BaseTask's K1 the one-box design's 4 (32 envs)."""
+    lib = host_libs[build]
+    if build.startswith("control_step"):
+        cs, _, envs, budget = ls.shared_layout(lib)
+        need = cs
+    else:
+        need, envs, budget = fsm.shared_layout(lib)[:3]
+    assert need <= budget == (233472 // blocks - 1024) // envs
+
+
+# ---------------------------------------------------------------- the task builds
+def _scene(task, n=16, seed=3):
+    """`task` at n envs (2 substeps) after 3 plain steps of random actions;
+    for BoxStacking, every other env's pick cube then rests on the platform
+    (cube-cube contact) and the rest keep theirs on the ground."""
+    env = make_env(load_config([f"task={task}", f"numEnvs={n}", "sim.substeps=2"]), seed=seed,
+                   device="cpu")
+    fused = env.make_fused()
+    fs, _ = fused.reset()
+    g = torch.Generator().manual_seed(seed + 1)
+    for _ in range(3):
+        fs, *_ = fused.step_fn(fs, torch.rand(n, env.num_actions, generator=g) * 2 - 1)
+    if env.comps.engine.params.has_box2:
+        lay = fused.layout
+        top = env.comps.task.plat_size + env.comps.task.box_size / 2 - 0.0015
+        b, b2 = lay.offs_f["box_pos"][0], lay.offs_f["box2_pos"][0]
+        fs.rows_f[b:b + 2, ::2] = fs.rows_f[b2:b2 + 2, ::2] + 0.005
+        fs.rows_f[b + 2, ::2] = top
+    return env, fused, fs, g
+
+
+@pytest.fixture(scope="module", params=["BoxStacking", "BaseTask"])
+def task_scene(request):
+    return _scene(request.param)
+
+
+def test_control_step_box2_source_matches_plain(host_libs):
+    """K2's two-box build against the plain engine, with its lanes forward
+    and in reverse bitwise equal."""
+    env, fused, fs, _ = _scene("BoxStacking")
+    c, n, lib = env.comps, fs.rows_f.shape[1], host_libs["control_step_box2"]
+    st = fused.unpack(fs)
+    ph, spawn = st.physics, env._spawn.expand(n, 3)
+    ref, info, kin = env._plain_control_step(ph, st.full_dof_targets, spawn, st.dr)
+    model = _buf(ls.lane_model_array(c.engine, c.physics_steps_per_control, lib))
+    Tt = lambda x: x.float().t().contiguous()
+    ins = [Tt(ph.q), Tt(ph.qd), Tt(st.full_dof_targets), Tt(spawn), Tt(box_rows(ph, True)),
+           st.dr.rows()]
+
+    def run(reverse):
+        outs = [torch.empty(r, n) for r in (26, 26, 26, 78, 6, 26 * 19 + 70)]
+        _in_lane_order(lib, reverse, lambda: lib.control_step_host(
+            model.data_ptr(), *(x.data_ptr() for x in ins), *(o.data_ptr() for o in outs), n))
+        return outs
+
+    fwd, rev = run(False), run(True)
+    assert all(torch.equal(a, b) for a, b in zip(fwd, rev))
+    want_bf = torch.cat([info.box_contact_force, info.box2_contact_force], 1)
+    for got, want in ((fwd[0].t(), ref.q), (fwd[1].t(), ref.qd),
+                      (fwd[2].t(), box_rows(ref, True)), (fwd[4].t(), want_bf),
+                      (fwd[3].t(), info.body_contact_force.reshape(n, -1)),
+                      (ls.unpack_kin(fwd[5], 26, 10).site_pos, kin.site_pos)):
+        assert float((got - want).abs().max() / want.abs().max().clamp_min(1e-6)) <= 1e-3
+    assert bool((info.box_contact_force[::2, 2] > 0).all())  # the platform holds the cube up
+
+
+def test_fused_task_source_matches_plain(host_libs, task_scene):
+    """K1's BoxStacking and BaseTask builds against the plain fused step
+    (half the envs resetting), with their lanes forward and in reverse
+    bitwise equal."""
+    env, fused, fs, g = task_scene
+    n, lib = fs.rows_f.shape[1], host_libs[fused.build]
+    fs.rows_i[fused.layout.offs_i["episode_step_count"][0], ::2] = (
+        env.comps.term_cfg.max_episode_length - 2)
+    act_T = (torch.rand(n, env.num_actions, generator=g) * 2 - 1).t().contiguous()
+    reset, dr = env.draw_samples(n, fs.difficulty)
+    rst, drn = fused.operand_rows(reset, dr, n, "cpu")
+
+    def run(reverse):
+        rf, ri = fs.rows_f.clone(), fs.rows_i.clone()
+        outs = _in_lane_order(lib, reverse, lambda: _host_fused(lib, env, fused, rf, ri, act_T,
+                                                                 rst, drn))
+        return [rf, ri, *outs]
+
+    fwd, rev = run(False), run(True)
+    assert all(torch.equal(a, b) for a, b in zip(fwd, rev))
+    rf2, ri2 = fs.rows_f.clone(), fs.rows_i.clone()
+    spw = env._spawn[:, None].expand(3, n).contiguous()
+    plain = fused.kernel_plain(rf2, ri2, act_T, rst, drn, spw)
+    assert torch.equal(fwd[5], plain[3]) and int(plain[3][0].sum()) >= n // 2
+    assert torch.equal(fwd[1], ri2)
+    for h, p, atol in ((fwd[0], rf2, 1e-3), (fwd[2], plain[0], 1e-2), (fwd[3], plain[1], 2e-4),
+                       (fwd[4], plain[2], 1e-3), (fwd[6], plain[4], 1e-3)):
+        torch.testing.assert_close(h, p, rtol=1e-4, atol=atol)
