@@ -7,12 +7,12 @@ result, without them or outside a checkout of this repository. Phases, each
 failing the run when it fails:
 
 1. build   compile every kernel build of csrc/ (kernel_build.BUILDS: K1 for
-           BlindGrasping, BaseTask and BoxStacking, K2 for one box and for
-           two, K3) with nvcc for sm_90a (one nvcc per build, started
-           together); print the build seconds and the ptxas register/spill
-           report, each kernel's shared bytes per block and resident blocks
-           (envs, or K3's systems) per SM (the BlindGrasping builds must keep
-           32 envs per SM), and the card's name and power limit.
+           each of the six tasks, K2 for one box and for two, K3) with nvcc
+           for sm_90a (one nvcc per build, started together); print the
+           build seconds and the ptxas register/spill report, each kernel's
+           shared bytes per block and resident blocks (envs, or K3's
+           systems) per SM (the one-box builds must keep 32 envs per SM),
+           and the card's name and power limit.
 2. golden  replay tests/golden/fused_blind_grasping.npz (recorded from the
            TPU kernel) through the CUDA fused kernel K1 with the JAX-sampled
            operands of dexrobot_isaac_tpu_torch/data/golden_operands.npz;
@@ -36,6 +36,18 @@ failing the run when it fails:
            equal.
    base    K1's BaseTask build (position_delta actions, no task step) the
            same way.
+   tasks   K1's BoxReorientation, InHandReorientation (the box pinched in
+           mid-air) and BoxPushing builds the same way, each at 4096 envs
+           after 3 plain steps of random actions. The pinch is
+           ill-conditioned over a control step's 16 substeps: the plain
+           version run on the host's CPU instead of the card already leaves
+           those tolerances in a few envs, and that count is printed. So
+           InHandReorientation's build is held to them in every env at one
+           substep per launch, and at 16 in all but at most 1% of the envs.
+   recipe  K1's BlindGrasping build the same way on the README recipe
+           (experiments=BlindGraspingCurriculum: 40 observation keys with
+           the asymmetric critic) at 8192 envs, its numEnvs, and on
+           BlindGraspingClearance (443 output words per env) at 4096.
 5. K3      the SPD solve kernel on the 4096 systems (A, rhs) of one Coriolis
            substep from phase 3's contact-rich state, and on their first
            4095 and first 1, against its plain version (relative 1e-5); both
@@ -49,8 +61,10 @@ failing the run when it fails:
            auto-resets fire), then 10 unfused (evaluation-path) steps.
            Launch counters are zeroed just before and read just after. The
            same for BoxStacking (600 fused steps through K1's BoxStacking
-           build, 10 unfused through K2's two-box build) and for BaseTask
-           (100 fused steps), each path counted on its own.
+           build, 10 unfused through K2's two-box build), for BaseTask (100
+           fused steps) and for BoxReorientation, InHandReorientation and
+           BoxPushing (320 fused steps each, past their 300-step episodes,
+           and 10 unfused), each path counted on its own.
 8. train   the CLI trainer (dexrobot_isaac_tpu_torch/train.py run_train)
            in-process on BlindGrasping at 4096 envs, default config (horizon
            16): 3 iterations on the fused step (K1 launches = 3 x 16), then 1
@@ -61,7 +75,10 @@ failing the run when it fails:
            with each iteration's rollout and update time. Then BoxStacking:
            2 iterations (one dispatch chunk of 2) with fused=auto, which
            must take K1's BoxStacking build, and an evaluation from its
-           checkpoint (the unfused step: K2's two-box build).
+           checkpoint (the unfused step: K2's two-box build). Then 1
+           iteration each of BoxReorientation, InHandReorientation and
+           BoxPushing with fused=auto, which must take the task's K1 build,
+           and an evaluation from the InHandReorientation checkpoint (K2).
 9. numbers env-steps/s of the 600-step rollout and each kernel's ms per
            launch, device time with its launches queued behind a sleeping
            kernel so that the host's launch overhead stays out
@@ -96,6 +113,13 @@ H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_PER_S = 67e12       # f32 outside the tensor cores, H100 SXM data sheet
 N_ENVS = 4096
 ROLLOUT_STEPS = 600
+# the single-box tasks' K1 builds; their paths run 320 fused steps (past
+# their 300-step episodes, so auto-resets fall in the window)
+NEW_TASKS = {"BoxReorientation": "fused_step_reorient", "InHandReorientation": "fused_step_inhand",
+             "BoxPushing": "fused_step_pushing"}
+TASK_STEPS = 320
+# one 2.5 ms substep per control step (a control step is 16 of them)
+ONE_SUBSTEP = ["sim.dt=0.0025", "sim.substeps=1", "sim.physics_steps_per_control=1"]
 # the golden scenario (tests/golden_scenario.py)
 GOLDEN_CONFIG = ["task=BlindGrasping", "numEnvs=8", "env.episodeLength=6", "sim.substeps=2"]
 GOLDEN_SEED = 123
@@ -208,11 +232,22 @@ def contact_counts(engine, ph, dr):
     return nz(fa), nz(fg)
 
 
+def envs_off(out_a, rf_a, ri_a, out_b, rf_b, ri_b):
+    """Per env: whether two K1 results (kernel or plain) disagree beyond the
+    tolerances: a mask, obs atol 2e-4, reward or a component atol 1e-3,
+    rows_f beyond 1e-3 of its largest value, or rows_i."""
+    scale = rf_b.abs().max().clamp_min(1e-6)
+    return ((out_a[3] != out_b[3]).any(0) | ((out_a[1] - out_b[1]).abs().amax(0) > 2e-4)
+            | ((out_a[2] - out_b[2]).abs().amax(0) > 1e-3)
+            | ((out_a[4] - out_b[4]).abs().amax(0) > 1e-3)
+            | ((rf_a - rf_b).abs().amax(0) > 1e-3 * scale) | (ri_a != ri_b).any(0))
+
+
 def k1_vs_plain(fused, env, state, gen, dev, n):
     """K1 (`fused.kernel`) against its plain version on `state` packed, every
     other env at its last step (the reset merge runs on half), and a second
     K1 launch on the same inputs. Returns (errors, the K1 inputs, K1's
-    outputs, the number of dones)."""
+    outputs, the number of dones, the plain version's outputs and rows)."""
     fs = fused.pack(state)
     fs.rows_i[fused.layout.offs_i["episode_step_count"][0], ::2] = (
         env.comps.term_cfg.max_episode_length - 2)
@@ -234,8 +269,26 @@ def k1_vs_plain(fused, env, state, gen, dev, n):
            "rew": float((ko[2][:, ok] - po[2][:, ok]).abs().max()),
            "comp": float((ko[4][:, ok] - po[4][:, ok]).abs().max()),
            "rows_f": rel_err(rf_k[:, ok], rf_p[:, ok]),
-           "rows_i_equal": bool(torch.equal(ri_k[:, ok], ri_p[:, ok]))}
-    return err, (fs, ins), ko, int(ko[3][0].sum())
+           "rows_i_equal": bool(torch.equal(ri_k[:, ok], ri_p[:, ok])),
+           "envs_off": int(envs_off(ko, rf_k, ri_k, po, rf_p, ri_p).sum())}
+    return err, (fs, ins), ko, int(ko[3][0].sum()), (po, rf_p, ri_p)
+
+
+def plain_spread(config, fs, ins, plain):
+    """The plain version against itself: the same inputs through the plain
+    fused step on the host's CPU (the same code in other orders of
+    summation) against its run on the card. Returns the envs where the two
+    disagree beyond K1's tolerances (`envs_off`)."""
+    from dexrobot_isaac_tpu_torch.factory import make_env
+    from dexrobot_isaac_tpu_torch.utils.config import load_config
+
+    n = fs.rows_f.shape[1]
+    env_c = make_env(load_config(config + [f"numEnvs={n}"]), seed=9, device="cpu")
+    rf_c, ri_c = fs.rows_f.cpu().clone(), fs.rows_i.cpu().clone()
+    pc = env_c.make_fused().kernel_plain(rf_c, ri_c, *(x.cpu() for x in ins))
+    dev = fs.rows_f.device
+    po, rf_p, ri_p = plain
+    return envs_off(tuple(x.to(dev) for x in pc), rf_c.to(dev), ri_c.to(dev), po, rf_p, ri_p)
 
 
 def rollout(env, fused, gen, dev, n, steps, unfused_steps):
@@ -266,10 +319,11 @@ def rollout(env, fused, gen, dev, n, steps, unfused_steps):
     return steps * n / secs, int(n_dones), finite, tuple(obs.shape), dict(kb.LAUNCHES)
 
 
-def _base_env(make_env, load_config, gen, dev):
-    """BaseTask at N_ENVS envs after 2 plain steps: (env, fused, state)."""
-    env = make_env(load_config(["task=BaseTask", f"numEnvs={N_ENVS}"]), seed=9, device=dev)
-    return env, env.make_fused(), plain_steps(env, gen, dev, N_ENVS, 2)
+def _task_env(make_env, load_config, gen, dev, config, n=N_ENVS, k=3):
+    """`config` (a task= or experiments= override and others) at n envs
+    after k plain steps of random actions: (env, fused, state)."""
+    env = make_env(load_config(config + [f"numEnvs={n}"]), seed=9, device=dev)
+    return env, env.make_fused(), plain_steps(env, gen, dev, n, k)
 
 
 def plain_steps(env, gen, dev, n, k):
@@ -320,8 +374,9 @@ def main() -> int:
         f"{k} {smem} B shared per block of {per} {unit(k)}, {blocks} blocks = {blocks * per} "
         f"{unit(k)} resident per SM" for k, (smem, blocks, per) in occ.items()))
     check(all(b >= 1 for _, b, _ in occ.values()), f"a kernel cannot be resident: {occ}")
-    check(all(occ[k][1] * occ[k][2] == 32 for k in ("fused_step", "control_step")),
-          f"the BlindGrasping builds no longer hold 32 envs per SM: {occ}")
+    one_box = ("fused_step", "control_step", "fused_step_base", *NEW_TASKS.values())
+    check(all(occ[k][1] * occ[k][2] == 32 for k in one_box),
+          f"a one-box build does not hold 32 envs per SM: {occ}")
 
     # ---------------------------------------------------------------- 2 golden
     golden = dict(np.load(GOLDEN))
@@ -393,8 +448,8 @@ def main() -> int:
     # K1's inputs (timed again in phase 9): phase 3's state, every other env
     # at its last episode step, so the step's reset merge and spawn
     # projection run on half the envs
-    k1, (fs_k1, (act_T, rst, drn, spw)), ko, n_done = k1_vs_plain(fused, env, state, gen, dev,
-                                                                  N_ENVS)
+    k1, (fs_k1, (act_T, rst, drn, spw)), ko, n_done, _ = k1_vs_plain(fused, env, state, gen,
+                                                                     dev, N_ENVS)
     log(f"[K1] two launches on the same inputs bitwise equal: {k1['bitwise']}")
     check(k1["bitwise"], "K1 gave different bits on the same inputs")
     log(f"[K1] fused step vs plain at {N_ENVS} envs: mask mismatches {k1['mask_mismatches']} "
@@ -448,22 +503,52 @@ def main() -> int:
           and n_hand > 0, "K2's two-box build disagrees with the plain engine, is not bitwise "
           "stable, or the state lacks a contact kind")
 
-    # ---------------------------------------------------------------- stacking, base
+    # ---------------------------------------------------------------- stacking, base, tasks, recipe
+    # each K1 task build against its plain version (timed again in phase 9),
+    # then the BlindGrasping build on the README recipe at its 8192 envs and
+    # on BlindGraspingClearance (not timed)
     k1_runs = {}
-    for label, env_t, fused_t, state_t in (
-            ("stacking", env_st, fused_st, state_st),
-            ("base", *_base_env(make_env, load_config, gen, dev))):
-        err, ins_t, ko_t, done_t = k1_vs_plain(fused_t, env_t, state_t, gen, dev, N_ENVS)
-        k1_runs[label] = (env_t, fused_t, err, ins_t, ko_t, done_t)
-        log(f"[{label}] K1 {fused_t.build} vs plain at {N_ENVS} envs: mask mismatches "
-            f"{err['mask_mismatches']} (dones {done_t}); max abs err obs {err['obs']:.3e} "
-            f"(atol 2e-4) rew {err['rew']:.3e} (atol 1e-3) comp {err['comp']:.3e}, rows_f rel "
-            f"{err['rows_f']:.2e}, rows_i equal {err['rows_i_equal']}; two launches bitwise "
-            f"equal {err['bitwise']}")
-        check(err["mask_mismatches"] == 0 and done_t >= N_ENVS // 2 and err["obs"] <= 2e-4
-              and err["rew"] <= 1e-3 and err["comp"] <= 1e-3 and err["rows_f"] <= 1e-3
-              and err["rows_i_equal"] and err["bitwise"],
-              f"K1's {fused_t.build} build disagrees with the plain fused step")
+    fused_builds_timed = ("stacking", "base", *NEW_TASKS.values())
+    scenes = [("stacking", lambda: (env_st, fused_st, state_st)),
+              ("base", lambda: _task_env(make_env, load_config, gen, dev, ["task=BaseTask"], k=2))]
+    scenes += [(build, lambda t=task: _task_env(make_env, load_config, gen, dev, [f"task={t}"]))
+               for task, build in NEW_TASKS.items()]
+    # InHandReorientation's pinch is ill-conditioned over a control step's 16
+    # substeps: the plain version, run on the host's CPU instead of the card,
+    # already leaves K1's tolerances in a few envs (`plain_spread`). Its
+    # build is held at the tolerances in every env with one substep per
+    # launch, and at 16 substeps in all but at most 1% of the envs, beside
+    # the plain version's own spread.
+    scenes.insert(4, ("fused_step_inhand 1 substep", lambda: _task_env(
+        make_env, load_config, gen, dev, ["task=InHandReorientation"] + ONE_SUBSTEP)))
+    scenes += [(f"recipe {exp} x {n}", lambda e=exp, n=n: _task_env(
+        make_env, load_config, gen, dev, [f"experiments={e}"], n=n))
+        for exp, n in (("BlindGraspingCurriculum", 2 * N_ENVS),
+                       ("BlindGraspingClearance", N_ENVS))]
+    for label, scene in scenes:
+        t0 = time.perf_counter()
+        env_t, fused_t, state_t = scene()
+        n_t = state_t.physics.q.shape[0]
+        err, ins_t, ko_t, done_t, plain_t = k1_vs_plain(fused_t, env_t, state_t, gen, dev, n_t)
+        phase = ("recipe" if label.startswith("recipe") else
+                 "tasks" if label.split()[0] in NEW_TASKS.values() else label)
+        ill = label == "fused_step_inhand"
+        spread = ""
+        if ill:
+            n_spread = int(plain_spread(["task=InHandReorientation"], *ins_t, plain_t).sum())
+            spread = f"; the plain version on the CPU against the card: {n_spread} envs beyond them"
+        log(f"[{phase}] K1 {fused_t.build} vs plain at {n_t} envs "
+            f"({label}, obs {fused_t.obs_dim}, {len(fused_t.comp_names)} components): mask "
+            f"mismatches {err['mask_mismatches']} (dones {done_t}); max abs err obs "
+            f"{err['obs']:.3e} (atol 2e-4) rew {err['rew']:.3e} (atol 1e-3) comp "
+            f"{err['comp']:.3e}, rows_f rel {err['rows_f']:.2e}, rows_i equal "
+            f"{err['rows_i_equal']}; envs beyond the tolerances {err['envs_off']}{spread}; "
+            f"two launches bitwise equal {err['bitwise']}; {time.perf_counter() - t0:.1f} s")
+        check(err["mask_mismatches"] == 0 and done_t >= n_t // 2 and err["bitwise"]
+              and err["envs_off"] <= (n_t // 100 if ill else 0),
+              f"K1's {fused_t.build} build disagrees with the plain fused step ({label})")
+        if phase != "recipe" and label in fused_builds_timed:
+            k1_runs[label] = (env_t, fused_t, err, ins_t, ko_t, done_t)
 
     # ---------------------------------------------------------------- 5 K3
     eng_c = HandPhysics(model=c.model, params=dataclasses.replace(c.engine.params, coriolis=True),
@@ -531,7 +616,9 @@ def main() -> int:
     path_sps = {}
     for label, task, steps, k1_build, k2_build in (
             ("stacking", "BoxStacking", ROLLOUT_STEPS, "fused_step_stacking", "control_step_box2"),
-            ("base", "BaseTask", 100, "fused_step_base", "control_step")):
+            ("base", "BaseTask", 100, "fused_step_base", "control_step"),
+            *((build, task, TASK_STEPS, build, "control_step")
+              for task, build in NEW_TASKS.items())):
         env_p = make_env(load_config([f"task={task}", f"numEnvs={N_ENVS}"]), seed=42, device=dev)
         fused_p = env_p.make_fused()
         sps_p, dones_p, finite_p, shape_p, counts = rollout(env_p, fused_p, gen, dev, N_ENVS,
@@ -544,7 +631,7 @@ def main() -> int:
             f"dones {dones_p}; finite {finite_p}; obs {shape_p}; launches {counts}")
         check(finite_p and shape_p == (N_ENVS, fused_p.obs_dim) and counts[k1_build] == steps
               and counts[k2_build] == 10, f"the {task} path missed a kernel: {counts}")
-        check(label != "stacking" or dones_p > 0, "the BoxStacking rollout had no done")
+        check(label == "base" or dones_p > 0, f"the {task} rollout had no done")
 
     # ---------------------------------------------------------------- 8 train
     # the CLI trainer in-process; run directories under ROOT/runs_all
@@ -627,6 +714,34 @@ def main() -> int:
     check(sev_launches["control_step_box2"] > 0 and sev.stats[-1]["episodes"] >= N_ENVS,
           f"BoxStacking evaluation missed K2's two-box build: {sev_launches}")
 
+    # the single-box tasks through the CLI: one iteration each with
+    # fused=auto (their K1 builds), then an evaluation from the
+    # InHandReorientation checkpoint (the unfused step: K2)
+    ckpts = {}
+    for task, build in NEW_TASKS.items():
+        base_t = [f"task={task}", f"numEnvs={N_ENVS}", "train.logging.noLogFile=true",
+                  "train.params.config.log_interval=1"]
+        tt, tt_launches, tt_s = train_run(base_t + [
+            "maxIterations=1", "train.params.config.save_frequency=1"], True)
+        s_ = tt.stats[-1]
+        h_t = tt.learner.cfg.horizon_length
+        log(f"[train] {task}: 1 PPO iteration x {h_t} steps x {N_ENVS} envs through the CLI in "
+            f"{tt_s:.2f} s, {s_['env_steps_per_s']:,.0f} env-steps/s, rollout "
+            f"{s_['rollout_s'] * 1e3:.1f} ms, update {s_['update_s'] * 1e3:.1f} ms; kl "
+            f"{s_['kl']:.4f}, reward {s_['reward_mean']:.3f}; launches {tt_launches}")
+        check(tt.fused.build == build and tt_launches[build] == h_t and finite_params(tt)
+              and np.isfinite(list(s_.values())).all(),
+              f"{task} training missed its K1 build or went non-finite: {tt_launches}")
+        ckpts[task] = (base_t, os.path.join(tt.run_dir, "nn", "latest.pt"))
+    base_ih, ckpt_ih = ckpts["InHandReorientation"]
+    iev, iev_launches, iev_s = train_run(base_ih + [
+        "test=true", f"checkpoint={ckpt_ih}", f"testGamesNum={N_ENVS}", "env.episodeLength=4"],
+        False)
+    log(f"[train] InHandReorientation eval from {os.path.relpath(ckpt_ih, ROOT)}: "
+        f"{iev.stats[-1]} in {iev_s:.2f} s; launches {iev_launches}")
+    check(iev_launches["control_step"] > 0 and iev.stats[-1]["episodes"] >= N_ENVS,
+          f"InHandReorientation evaluation missed K2: {iev_launches}")
+
     # ---------------------------------------------------------------- 9 numbers
     # kernel timings on the phase-3/4/5 inputs (launches here are not counted).
     # K1 writes its state rows in place, so each timed call first restores
@@ -682,7 +797,7 @@ def main() -> int:
     k3_lib_ms = cuda_ms(lambda: torch.linalg.solve(A3, b3[..., None]), 20)
     log(f"[numbers] spd_solve library yardsticks: torch.linalg.solve {k3_lib_ms:.4f} ms, "
         f"cholesky + cholesky_solve (the plain version) {k3_plain_ms:.4f} ms")
-    # K1's BoxStacking and BaseTask builds on their phase inputs, K2's
+    # K1's task builds on their phase inputs, K2's
     # two-box build on phase [box2]'s
     k1_task = {}
     for label, (env_t, fused_t, err, (fs_t, ins_t), ko_t, done_t) in k1_runs.items():
@@ -742,8 +857,7 @@ def main() -> int:
     r2 = lane_step.lane_model_array(c_st.engine, steps_st, kb.load("control_step_box2"))
     f_k2b = lane_step.control_step_flops(r2) * N_ENVS
     b_k2b = nbytes(*rows2, *lane_step.control_step_rows(c_st.engine, steps_st, *rows2))
-    for label, env_t in (("stacking", env_st), ("base", k1_runs["base"][0])):
-        fused_t, done_t = k1_runs[label][1], k1_runs[label][5]
+    for label, (env_t, fused_t, _, _, _, done_t) in k1_runs.items():
         r_t = lane_step.lane_model_array(env_t.comps.engine, env_t.comps.physics_steps_per_control,
                                          kb.load(fused_t.build))
         cfg_t = fused_step.fused_config_array(env_t, fused_t.layout, fused_t.comp_names,
@@ -776,7 +890,7 @@ def main() -> int:
            "dexrobot_isaac_tpu/envs/fused_step.py:1080", k1_task[label]["ms"],
            k1_task[label]["paced"], k1_task[label]["plain"], k1_runs[label][2]["obs"],
            bound(k1_task[label]["bytes"], k1_task[label]["flops"]), None)
-          for label in ("stacking", "base")),
+          for label in k1_runs),
         ("control_step_box2", "dexrobot_isaac_tpu_torch/csrc/control_step.cu",
          "dexrobot_isaac_tpu/physics/pallas_step.py:1141", k2b_ms, k2b_paced_ms, k2b_plain_ms,
          k2b_abs, bound(b_k2b, f_k2b), None),
@@ -788,9 +902,9 @@ def main() -> int:
         log(f"[numbers] {name}: {ms:.5f} ms/launch (paced by the host {paced:.5f}), plain "
             f"{pms:.4f} ms, bound {bms:.5f} ms ({by}), library "
             f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, launches {launches[name]}")
-    log(f"[numbers] env-steps/s {sps:,.0f} (BoxStacking {path_sps['stacking']:,.0f}, BaseTask "
-        f"{path_sps['base']:,.0f}), training env-steps/s {train_sps:,.0f} ({card}); "
-        f"total {time.perf_counter() - t_start:.0f} s")
+    log(f"[numbers] env-steps/s {sps:,.0f} (" + ", ".join(
+        f"{k} {v:,.0f}" for k, v in path_sps.items()) + f"), training env-steps/s "
+        f"{train_sps:,.0f} ({card}); total {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
-// K1: the fused env step, one whole control step per env, for BlindGrasping,
-// BaseTask or BoxStacking.
+// K1: the fused env step, one whole control step per env, for each of the six
+// tasks.
 //
 // Replaces the TPU kernel of dexrobot_isaac_tpu/envs/fused_step.py
 // (build_fused_step -> kernel_body, pallas_call at :1080 in
@@ -24,7 +24,11 @@
 // task: FS_TASK 1 BlindGrasping (the default), 0 BaseTask (no task step:
 // the builtin hitting-ground criterion and the common rewards), 2
 // BoxStacking (with -DLP_HAS_BOX2=1: the platform cube's 13 state rows, its
-// 7 reset rows, its contact force). The static plan (obs key order, reward
+// 7 reset rows, its contact force), 3 BoxReorientation, 4
+// InHandReorientation, 5 BoxPushing (their task states all come from the
+// reset rows). Each build's working set holds its own task's observations
+// and state only (FsObs, FsTaskState), so that one task's fields take no
+// words of another build's output staging. The static plan (obs key order, reward
 // weights, component order, active criteria and flag rows, row offsets,
 // action limits, task constants) is DATA in a FusedConfig buffer built by
 // envs/fused_step.py.
@@ -48,7 +52,8 @@
 #endif
 
 #ifndef FS_TASK
-#define FS_TASK 1  // 0 BaseTask, 1 BlindGrasping, 2 BoxStacking
+#define FS_TASK 1  // 0 BaseTask, 1 BlindGrasping, 2 BoxStacking, 3 BoxReorientation,
+                   // 4 InHandReorientation, 5 BoxPushing
 #endif
 
 #include "lane_physics.cuh"
@@ -108,7 +113,19 @@
   S(int, bs_hg_override) S(float, bs_tip_bridge_margin) S(float, bs_pocket_margin) \
   S(float, bs_pocket_radius) S(float, bs_pocket_end) S(float, bs_handbase_thr)  \
   S(float, bs_fingertip_thr) S(float, bs_lift_z) S(float, bs_ub_half)           \
-  S(float, bs_ub_margin) S(float, bs_ub_ground_z) S(float, bs_drift_free)
+  S(float, bs_ub_margin) S(float, bs_ub_ground_z) S(float, bs_drift_free)       \
+  S(float, t_contact_thr) S(float, t_prox_thr) S(int, t_thr_steps)              \
+  S(float, t_lift_z) S(float, t_d_prox) S(int, r_initial_box_pos)               \
+  S(int, f_target_yaw) S(int, f_prev_yaw_error) S(int, i_aligned_duration_steps) \
+  S(int, r_target_yaw) S(int, r_prev_yaw_error) S(int, r_aligned_duration_steps) \
+  S(float, ro_period) S(float, ro_yaw_tol) S(float, ro_d_orient)                \
+  S(float, ro_drift_tol) S(float, ro_max_drift) S(float, ro_d_drift)            \
+  S(float, ih_hang_z) S(float, ih_drop_band) S(float, ih_drop_z)                \
+  S(float, ih_escape) S(float, ih_d_height)                                     \
+  S(int, f_target_xy) S(int, f_initial_dist) S(int, f_prev_dist)                \
+  S(int, r_target_xy) S(int, r_initial_dist) S(int, r_prev_dist)                \
+  S(float, bp_pos_tol) S(float, bp_rest_speed) S(float, bp_overshoot)           \
+  S(float, bp_d_dist)
 
 struct FusedConfig {
   FUSED_CONFIG_FIELDS(LP_DECL_S, LP_DECL_A)
@@ -130,6 +147,8 @@ enum {
   OK_GRASP_STATE, OK_GRASP_DURATION, OK_CURRENT_STAGE, OK_TIME_IN_STAGE, OK_STAGE_PROGRESS,
   OK_OBJECT_QUAT, OK_PLATFORM_POS, OK_PLATFORM_QUAT, OK_TO_STACK_TARGET, OK_STACK_DIST,
   OK_FINGERS_ON_BOX, OK_HOLD_DURATION,
+  OK_OBJECT_ANGVEL, OK_OBJECT_YAW_SINCOS, OK_TARGET_YAW_SINCOS, OK_YAW_ERROR, OK_BOX_DRIFT,
+  OK_ALIGNED_DURATION, OK_OBJECT_REL_HAND, OK_TARGET_XY, OK_TO_TARGET, OK_DIST_TO_TARGET,
 };
 
 // reward terms (envs/fused_step.py reward_terms_for: the common terms, then
@@ -160,6 +179,27 @@ enum {
 };
 enum { SC_STACK_SUCCESS, SC_COUNT };
 enum { FC_BOX_TOO_FAR = FC_HITTING_GROUND + 1, FC_PLATFORM_MOVED, FC_COUNT };
+#elif FS_TASK == 3
+enum {
+  RT_ORIENTATION_TRACKING = RT_TASK0, RT_ORIENTATION_DELTA, RT_FINGERPAD_PROXIMITY,
+  RT_POSITION_STABILITY, RT_FINGER_CONTACT, RT_ALIGNMENT_HOLD, RT_COUNT
+};
+enum { SC_REORIENT_SUCCESS, SC_COUNT };
+enum { FC_BOX_PUSHED_AWAY = FC_HITTING_GROUND + 1, FC_BOX_LIFTED, FC_COUNT };
+#elif FS_TASK == 4
+enum {
+  RT_ORIENTATION_TRACKING = RT_TASK0, RT_ORIENTATION_DELTA, RT_GRASP_MAINTENANCE,
+  RT_HEIGHT_KEEP, RT_ALIGNMENT_HOLD, RT_COUNT
+};
+enum { SC_REORIENT_SUCCESS, SC_COUNT };
+enum { FC_BOX_DROPPED = FC_HITTING_GROUND + 1, FC_BOX_ESCAPED, FC_COUNT };
+#elif FS_TASK == 5
+enum {
+  RT_DISTANCE_TRACKING = RT_TASK0, RT_DISTANCE_DELTA, RT_FINGERPAD_PROXIMITY,
+  RT_FINGER_CONTACT, RT_TARGET_HOLD, RT_COUNT
+};
+enum { SC_PUSH_SUCCESS, SC_COUNT };
+enum { FC_BOX_LOST = FC_HITTING_GROUND + 1, FC_BOX_LIFTED, FC_COUNT };
 #else
 enum { RT_COUNT = RT_TASK0 };
 enum { SC_COUNT = 0 };
@@ -173,7 +213,9 @@ enum { CK_RAW, CK_WEIGHTED, CK_TOTAL, CK_TERM_SUCCESS, CK_TERM_SUCCESS_W,
 #define FS_SQRT_HALF 0.7071067811865476f
 #define FS_HALF_PI 1.5707963267948966f
 
-// everything the observation plan can read, per env
+// everything the observation plan can read, per env: the default keys' and
+// the box's, then the task's (each build holds its own task's fields only, so
+// that one task's observations cost another build's staging nothing)
 struct FsObs {
   float q[LP_MAXB], dvel[LP_MAXB], full[LP_MAXB], t[18], acts[32];
   float hand_pos[3], hand_quat[4];
@@ -181,17 +223,41 @@ struct FsObs {
   float cfc[8][3], mags[8], binary[8];
   int new_dur[8], epi_old;
   float box[LP_BOX_ROWS];  // the box (and the platform cube: rows 13-25)
-  float d_f2o[5], hdiff[5], h2o, fpd[10], centroid[3];
+#if FS_TASK >= 1
+  float d_f2o[5];          // fingerpad-to-box distances
+#endif
+#if FS_TASK >= 2
+  float fob[5];            // fingers on the box
+#endif
+#if FS_TASK == 1
+  float hdiff[5], h2o, fpd[10], centroid[3];
   float thumb, other, grasp, grasp_dur, stage, tis, progress;
-  float to_target[3], stack_dist, fob[5], hold_dur;
+#elif FS_TASK == 2
+  float to_target[3], stack_dist, hold_dur;
+#elif FS_TASK == 3 || FS_TASK == 4
+  float yaw_sc[2], target_sc[2], yaw_err, aligned_dur;
+#if FS_TASK == 3
+  float drift;
+#else
+  float rel_hand[3], grasp;
+#endif
+#elif FS_TASK == 5
+  float target_xy[2], to_target[2], dist, hold_dur;
+#endif
 };
 
 // the task step's new task state, read by the reset merge
 struct FsTaskState {
-  int stage, steps;          // BlindGrasping (steps: success duration)
+  int steps;  // BlindGrasping: success duration; BoxStacking, BoxPushing: hold
+              // duration; the reorientation tasks: aligned duration
+#if FS_TASK == 1
+  int stage;
   float tis, scd;
   bool s1c, s2c, cond;
-  float transport_dist;      // BoxStacking (steps: hold duration)
+#elif FS_TASK >= 2
+  float last;  // BoxStacking: transport distance; the reorientation tasks:
+               // yaw error; BoxPushing: distance to the target
+#endif
 };
 
 // lane 0's working set after the physics, in the env's LpEnv union (after
@@ -283,8 +349,16 @@ LP_DEV int fs_put_obs(int key, const FsObs& o, const FusedConfig* c, float* obs,
       break;
     case OK_EPISODE_TIME: PUT((float)o.epi_old * c->control_dt); break;
     case OK_OBJECT_POS: for (int j = 0; j < 3; ++j) PUT(o.box[j]); break;
+    case OK_OBJECT_QUAT: for (int j = 0; j < 4; ++j) PUT(o.box[3 + j]); break;
     case OK_OBJECT_VEL: for (int j = 0; j < 3; ++j) PUT(o.box[7 + j]); break;
+    case OK_OBJECT_ANGVEL: for (int j = 0; j < 3; ++j) PUT(o.box[10 + j]); break;
+#if FS_TASK >= 1
     case OK_FINGER_TO_OBJECT_DISTANCES: for (int f = 0; f < 5; ++f) PUT(o.d_f2o[f]); break;
+#endif
+#if FS_TASK >= 2
+    case OK_FINGERS_ON_BOX: for (int f = 0; f < 5; ++f) PUT(o.fob[f]); break;
+#endif
+#if FS_TASK == 1
     case OK_AVG_FINGER_TO_OBJECT_DISTANCE:
       PUT((o.d_f2o[0] + o.d_f2o[1] + o.d_f2o[2] + o.d_f2o[3] + o.d_f2o[4]) / 5.0f);
       break;
@@ -297,18 +371,38 @@ LP_DEV int fs_put_obs(int key, const FsObs& o, const FusedConfig* c, float* obs,
     case OK_FIRST_THREE_FINGERPAD_CENTROID: for (int j = 0; j < 3; ++j) PUT(o.centroid[j]); break;
     case OK_THUMB_CONTACT: PUT(o.thumb); break;
     case OK_OTHER_FINGERS_CONTACT: PUT(o.other); break;
-    case OK_GRASP_STATE: PUT(o.grasp); break;
     case OK_GRASP_DURATION: PUT(o.grasp_dur); break;
     case OK_CURRENT_STAGE: PUT(o.stage); break;
     case OK_TIME_IN_STAGE: PUT(o.tis); break;
     case OK_STAGE_PROGRESS: PUT(o.progress); break;
-    case OK_OBJECT_QUAT: for (int j = 0; j < 4; ++j) PUT(o.box[3 + j]); break;
+#endif
+#if FS_TASK == 1 || FS_TASK == 4
+    case OK_GRASP_STATE: PUT(o.grasp); break;
+#endif
+#if FS_TASK == 2
     case OK_PLATFORM_POS: for (int j = 0; j < 3; ++j) PUT(o.box[13 + j]); break;
     case OK_PLATFORM_QUAT: for (int j = 0; j < 4; ++j) PUT(o.box[16 + j]); break;
     case OK_TO_STACK_TARGET: for (int j = 0; j < 3; ++j) PUT(o.to_target[j]); break;
     case OK_STACK_DIST: PUT(o.stack_dist); break;
-    case OK_FINGERS_ON_BOX: for (int f = 0; f < 5; ++f) PUT(o.fob[f]); break;
+#endif
+#if FS_TASK == 2 || FS_TASK == 5
     case OK_HOLD_DURATION: PUT(o.hold_dur); break;
+#endif
+#if FS_TASK == 3 || FS_TASK == 4
+    case OK_OBJECT_YAW_SINCOS: PUT(o.yaw_sc[0]); PUT(o.yaw_sc[1]); break;
+    case OK_TARGET_YAW_SINCOS: PUT(o.target_sc[0]); PUT(o.target_sc[1]); break;
+    case OK_YAW_ERROR: PUT(o.yaw_err); break;
+    case OK_ALIGNED_DURATION: PUT(o.aligned_dur); break;
+#endif
+#if FS_TASK == 3
+    case OK_BOX_DRIFT: PUT(o.drift); break;
+#elif FS_TASK == 4
+    case OK_OBJECT_REL_HAND: for (int j = 0; j < 3; ++j) PUT(o.rel_hand[j]); break;
+#elif FS_TASK == 5
+    case OK_TARGET_XY: PUT(o.target_xy[0]); PUT(o.target_xy[1]); break;
+    case OK_TO_TARGET: PUT(o.to_target[0]); PUT(o.to_target[1]); break;
+    case OK_DIST_TO_TARGET: PUT(o.dist); break;
+#endif
   }
 #undef PUT
   return row;
@@ -551,9 +645,132 @@ LP_DEV void fs_task_step(const FusedConfig* c, const float* rows_f, const int* r
   r[RT_UNDER_BOX_PENALTY] = under * (bpos[2] < c->bs_ub_ground_z ? 1.f : 0.f);
   r[RT_PLATFORM_DRIFT_PENALTY] = fmaxf(plat_moved - c->bs_drift_free, 0.f) * (1.0f - bridge);
   wk->ts.steps = steps;
-  wk->ts.transport_dist = transport_dist;
+  wk->ts.last = transport_dist;
   (void)min_tip;
 }
+#elif FS_TASK >= 3
+// The single-box tasks' common parts: the fingerpad-to-box distances and the
+// fingers on the box (tasks/api.py detect_finger_box_contacts) into o, their
+// count returned; bf is the box's contact force.
+LP_DEV int fs_fingers_on_box(const FusedConfig* c, FsObs& o, const float* bf) {
+  const float zero3[3] = {0.f, 0.f, 0.f};
+  const bool box_has = fs_norm3(bf, zero3) > c->t_contact_thr;
+  int n_on = 0;
+  for (int f = 0; f < 5; ++f) {
+    o.d_f2o[f] = fs_norm3(o.pad_pos[f], o.box);
+    const bool fb = (o.binary[f] > 0.5f) && box_has && (o.d_f2o[f] < c->t_prox_thr);
+    o.fob[f] = fb ? 1.f : 0.f;
+    n_on += fb ? 1 : 0;
+  }
+  return n_on;
+}
+
+LP_DEV float fs_min5(const float* d) {
+  float m = d[0];
+  for (int f = 1; f < 5; ++f) m = fminf(m, d[f]);
+  return m;
+}
+
+#if FS_TASK == 3 || FS_TASK == 4
+// BoxReorientation (box_reorientation.py lane_step: the box on the ground,
+// turned in place) and InHandReorientation (in_hand_reorientation.py
+// lane_step: the box pinched in mid-air): the box's yaw from its quaternion
+// (_box_yaw), its error to the target modulo the cube's symmetry period
+// (tasks/api.py symmetric_angle_error; rintf rounds half to even, as
+// jnp.round and torch.round do), the aligned-duration counter and success.
+LP_DEV void fs_task_step(const FusedConfig* c, const float* rows_f, const int* rows_i,
+                         const float* bf, float min_tip, FsWork* wk) {
+  FsObs& o = wk->o;
+  bool* fail = wk->fail;
+  float* r = wk->r;
+  const float* bpos = o.box;
+  const float* bq = o.box + 3;
+  const float yaw = atan2f(2.0f * (bq[3] * bq[2] + bq[0] * bq[1]),
+                           1.0f - 2.0f * (bq[1] * bq[1] + bq[2] * bq[2]));
+  const float target = rows_f[c->f_target_yaw];
+  const float e = yaw - target;
+  const float err = e - c->ro_period * rintf(e / c->ro_period);
+  const float abs_err = fabsf(err);
+  o.yaw_sc[0] = sinf(yaw);
+  o.yaw_sc[1] = cosf(yaw);
+  o.target_sc[0] = sinf(target);
+  o.target_sc[1] = cosf(target);
+  o.yaw_err = err;
+  const int n_on = fs_fingers_on_box(c, o, bf);
+#if FS_TASK == 3
+  const float dx = bpos[0] - rows_f[c->f_initial_box_pos];
+  const float dy = bpos[1] - rows_f[c->f_initial_box_pos + 1];
+  const float drift = sqrtf(dx * dx + dy * dy);
+  o.drift = drift;
+  const bool aligned = (abs_err < c->ro_yaw_tol) && (drift < c->ro_drift_tol);
+#else
+  for (int j = 0; j < 3; ++j) o.rel_hand[j] = bpos[j] - o.hand_pos[j];
+  const float* rh = o.rel_hand;
+  const float hand_dist = sqrtf(rh[0] * rh[0] + rh[1] * rh[1] + rh[2] * rh[2]);
+  const float height_err = fabsf(bpos[2] - c->ih_hang_z);
+  const bool grasped = (o.fob[0] > 0.5f) && ((o.fob[1] > 0.5f) || (o.fob[2] > 0.5f) ||
+                                             (o.fob[3] > 0.5f) || (o.fob[4] > 0.5f));
+  o.grasp = grasped ? 1.f : 0.f;
+  const bool aligned = (abs_err < c->ro_yaw_tol) && (height_err < c->ih_drop_band);
+#endif
+  const int steps = aligned ? rows_i[c->i_aligned_duration_steps] + 1 : 0;
+  o.aligned_dur = (float)steps * c->control_dt;
+  wk->succ[SC_REORIENT_SUCCESS] = steps >= c->t_thr_steps;
+  r[RT_ORIENTATION_TRACKING] = expf(-c->ro_d_orient * abs_err);
+  r[RT_ORIENTATION_DELTA] = fabsf(rows_f[c->f_prev_yaw_error]) - abs_err;
+  r[RT_ALIGNMENT_HOLD] = aligned ? 1.f : 0.f;
+#if FS_TASK == 3
+  fail[FC_BOX_PUSHED_AWAY] = drift > c->ro_max_drift;
+  fail[FC_BOX_LIFTED] = bpos[2] > c->t_lift_z;
+  r[RT_FINGERPAD_PROXIMITY] = expf(-c->t_d_prox * fs_min5(o.d_f2o));
+  r[RT_POSITION_STABILITY] = expf(-c->ro_d_drift * drift);
+  r[RT_FINGER_CONTACT] = n_on > 0 ? 1.f : 0.f;
+#else
+  fail[FC_BOX_DROPPED] = bpos[2] < c->ih_drop_z;
+  fail[FC_BOX_ESCAPED] = hand_dist > c->ih_escape;
+  r[RT_GRASP_MAINTENANCE] = o.grasp;
+  r[RT_HEIGHT_KEEP] = expf(-c->ih_d_height * height_err);
+  (void)n_on;
+#endif
+  wk->ts.steps = steps;
+  wk->ts.last = err;
+  (void)min_tip;
+}
+#else
+// BoxPushing (box_pushing.py lane_step): the box's distance to the sampled
+// target_xy, the hold counter at the target and success; the target and the
+// distances come from the reset rows.
+LP_DEV void fs_task_step(const FusedConfig* c, const float* rows_f, const int* rows_i,
+                         const float* bf, float min_tip, FsWork* wk) {
+  FsObs& o = wk->o;
+  bool* fail = wk->fail;
+  float* r = wk->r;
+  const float* bpos = o.box;
+  const float* bvel = o.box + 7;
+  for (int j = 0; j < 2; ++j) {
+    o.target_xy[j] = rows_f[c->f_target_xy + j];
+    o.to_target[j] = o.target_xy[j] - bpos[j];
+  }
+  const float dist = sqrtf(o.to_target[0] * o.to_target[0] + o.to_target[1] * o.to_target[1]);
+  o.dist = dist;
+  const float speed = sqrtf(bvel[0] * bvel[0] + bvel[1] * bvel[1] + bvel[2] * bvel[2]);
+  const int n_on = fs_fingers_on_box(c, o, bf);
+  const bool at_target = (dist < c->bp_pos_tol) && (speed < c->bp_rest_speed);
+  const int steps = at_target ? rows_i[c->i_hold_duration_steps] + 1 : 0;
+  o.hold_dur = (float)steps * c->control_dt;
+  wk->succ[SC_PUSH_SUCCESS] = steps >= c->t_thr_steps;
+  fail[FC_BOX_LOST] = dist > rows_f[c->f_initial_dist] + c->bp_overshoot;
+  fail[FC_BOX_LIFTED] = bpos[2] > c->t_lift_z;
+  r[RT_DISTANCE_TRACKING] = expf(-c->bp_d_dist * dist);
+  r[RT_DISTANCE_DELTA] = rows_f[c->f_prev_dist] - dist;
+  r[RT_FINGERPAD_PROXIMITY] = expf(-c->t_d_prox * fs_min5(o.d_f2o));
+  r[RT_FINGER_CONTACT] = n_on > 0 ? 1.f : 0.f;
+  r[RT_TARGET_HOLD] = at_target ? 1.f : 0.f;
+  wk->ts.steps = steps;
+  wk->ts.last = dist;
+  (void)min_tip;
+}
+#endif
 #else
 // BaseTask: no task step.
 LP_DEV void fs_task_step(const FusedConfig* c, const float* rows_f, const int* rows_i,
@@ -582,9 +799,28 @@ LP_DEV void fs_task_merge(const LaneModel* m, const FusedConfig* c, bool done,
   for (int j = 0; j < 2; ++j)
     FR(c->f_platform_spawn_xy + j) = done ? rst[c->r_platform_spawn_xy + j]
                                           : FR(c->f_platform_spawn_xy + j);
-  FR(c->f_prev_transport_dist) = done ? rst[c->r_prev_transport_dist] : ts.transport_dist;
+  FR(c->f_prev_transport_dist) = done ? rst[c->r_prev_transport_dist] : ts.last;
   FR(c->f_spawn_difficulty) = done ? rst[c->r_spawn_difficulty] : FR(c->f_spawn_difficulty);
   IR(c->i_hold_duration_steps) = done ? (int)rst[c->r_hold_duration_steps] : ts.steps;
+#elif FS_TASK == 3 || FS_TASK == 4
+  // every task state comes from the sampled reset rows
+  FR(c->f_target_yaw) = done ? rst[c->r_target_yaw] : FR(c->f_target_yaw);
+#if FS_TASK == 3
+  for (int j = 0; j < 3; ++j)
+    FR(c->f_initial_box_pos + j) =
+        done ? rst[c->r_initial_box_pos + j] : FR(c->f_initial_box_pos + j);
+#endif
+  FR(c->f_prev_yaw_error) = done ? rst[c->r_prev_yaw_error] : ts.last;
+  IR(c->i_aligned_duration_steps) = done ? (int)rst[c->r_aligned_duration_steps] : ts.steps;
+  (void)m;
+#elif FS_TASK == 5
+  // every task state comes from the sampled reset rows
+  for (int j = 0; j < 2; ++j)
+    FR(c->f_target_xy + j) = done ? rst[c->r_target_xy + j] : FR(c->f_target_xy + j);
+  FR(c->f_initial_dist) = done ? rst[c->r_initial_dist] : FR(c->f_initial_dist);
+  FR(c->f_prev_dist) = done ? rst[c->r_prev_dist] : ts.last;
+  IR(c->i_hold_duration_steps) = done ? (int)rst[c->r_hold_duration_steps] : ts.steps;
+  (void)m;
 #else
   (void)m; (void)c; (void)done; (void)ts; (void)rst; (void)rows_f; (void)rows_i;
 #endif
@@ -810,12 +1046,15 @@ LP_DEV void fs_post(const LaneModel* m, const FusedConfig* c, const LpEnv* s, co
 // actions | reset rows | DR | spawn), the active targets and the reset
 // pose's lowest tip. The output rows (rows_c | obs | reward | masks |
 // components) are assembled in the LpEnv union after the physics. The
-// column's words per build: BlindGrasping's 231 (its cap of 240 kept), BaseTask's
-// 206 and BoxStacking's 239 with room for up to 8 contact bodies.
+// column's words per build, with room for up to 8 contact bodies:
+// BlindGrasping's 231 (its cap of 240 kept), BaseTask's 206, BoxStacking's
+// 239, BoxReorientation's 221, InHandReorientation's 214 and BoxPushing's 219.
 #if FS_TASK == 1
 #define FS_IN_CAP 240
 #elif FS_TASK == 2
 #define FS_IN_CAP 248
+#elif FS_TASK >= 3
+#define FS_IN_CAP 232
 #else
 #define FS_IN_CAP 224
 #endif

@@ -5,9 +5,10 @@ The port of `dexrobot_isaac_tpu/envs/fused_step.py`. The kernel
 `csrc/lane_physics.cuh`) runs the action pipeline, `physics_steps_per_control
 x substeps` substeps and the final FK, the default observations, the task's
 step, termination, rewards, the spawn projection of the reset rows and the
-done-masked reset merge, over a packed transposed state. Each task with a
-kernel step has its own build (`FUSED_BUILDS`): BlindGrasping, BaseTask (no
-task step) and BoxStacking (with the platform cube's rows).
+done-masked reset merge, over a packed transposed state. Each task has its
+own build (`FUSED_BUILDS`): BlindGrasping, BaseTask (no task step),
+BoxStacking (with the platform cube's rows), BoxReorientation,
+InHandReorientation and BoxPushing.
 
 - `FusedEnvState` holds `rows_f (Rf, N) f32` and `rows_i (Ri, N) i32` (env
   index minor, as in the JAX package), the write-only `rows_c`, and the
@@ -24,9 +25,10 @@ task step) and BoxStacking (with the platform cube's rows).
 `build_fused_step` makes the wrapper (`kernel`): it launches the kernel on
 CUDA tensors and runs the plain version (`kernel_plain`: unpack -> the env's
 plain step -> pack) on CPU tensors. Configurations without a kernel
-implementation raise `FusedUnsupported`. Tasks that carry each env's spawn
-difficulty (BoxStacking) also get `success_strict`/`done_strict` extras, as
-the unfused step does.
+implementation, or whose rows do not fit the build's staging in shared
+memory, raise `FusedUnsupported` when the fused step is made. Tasks that
+carry each env's spawn difficulty (BoxStacking) also get
+`success_strict`/`done_strict` extras, as the unfused step does.
 """
 
 from __future__ import annotations
@@ -47,7 +49,10 @@ from dexrobot_isaac_tpu_torch.envs.observations import default_obs_dims
 from dexrobot_isaac_tpu_torch.envs.tasks.api import TaskReset
 from dexrobot_isaac_tpu_torch.envs.tasks.base_task import BaseTask
 from dexrobot_isaac_tpu_torch.envs.tasks.blind_grasping import BlindGraspingTask
+from dexrobot_isaac_tpu_torch.envs.tasks.box_pushing import BoxPushingTask
+from dexrobot_isaac_tpu_torch.envs.tasks.box_reorientation import BoxReorientationTask
 from dexrobot_isaac_tpu_torch.envs.tasks.box_stacking import BoxStackingTask
+from dexrobot_isaac_tpu_torch.envs.tasks.in_hand_reorientation import InHandReorientationTask
 from dexrobot_isaac_tpu_torch.envs.types import EnvState
 from dexrobot_isaac_tpu_torch.physics import lane_step
 from dexrobot_isaac_tpu_torch.physics.types import BOX2_FIELDS, DR_FIELDS, DRSample, PhysicsState
@@ -154,9 +159,12 @@ class FusedLayout:
                                   (self.i_names, self.offs_i, fs.rows_i),
                                   (self.c_names, self.offs_c, fs.rows_c)):
             for nm in names:
+                # contiguous, as the unfused step's leaves are: a reduction
+                # over a strided view (torch.linalg.vector_norm) may round
+                # otherwise
                 o, k = offs[nm]
                 v[nm] = rows[o:o + k].t().reshape((n,) + self.shapes[nm][1:]).to(
-                    self.dtypes[nm])
+                    self.dtypes[nm]).contiguous()
         sub = lambda p: {k[3:]: v[k] for k in self.f_names + self.i_names if k.startswith(p)}
         return EnvState(
             physics=PhysicsState(**{p: v[p] for p in self.phys_names}),
@@ -199,11 +207,15 @@ OBS_KEYS = (
     # BoxStacking's (object_pos, object_vel and finger_to_object_distances above)
     "object_quat", "platform_pos", "platform_quat", "to_stack_target", "stack_dist",
     "fingers_on_box", "hold_duration",
+    # the single-box tasks' (BoxReorientation, InHandReorientation, BoxPushing)
+    "object_angvel", "object_yaw_sincos", "target_yaw_sincos", "yaw_error", "box_drift",
+    "aligned_duration", "object_rel_hand", "target_xy", "to_target", "dist_to_target",
 )
 # K1's build of each task's step (utils/kernel_build.py BUILDS); the task's
 # exact class, so that a subclass with its own step has none
 FUSED_BUILDS = {BaseTask: "fused_step_base", BlindGraspingTask: "fused_step",
-                BoxStackingTask: "fused_step_stacking"}
+                BoxStackingTask: "fused_step_stacking", BoxReorientationTask: "fused_step_reorient",
+                InHandReorientationTask: "fused_step_inhand", BoxPushingTask: "fused_step_pushing"}
 TERM_COMPONENTS = (
     "total", "termination_success", "termination_success_weighted",
     "termination_failure_penalty", "termination_failure_penalty_weighted",
@@ -390,6 +402,8 @@ def fused_config_array(env, layout: FusedLayout, comp_names, rst_rows: int,
         _blind_grasping_fields(r, task, of, oi, c.control_dt)
     elif isinstance(task, BoxStackingTask):
         _box_stacking_fields(r, task, layout, rst_layout(env)[0])
+    elif isinstance(task, (BoxReorientationTask, InHandReorientationTask, BoxPushingTask)):
+        _single_box_fields(r, task, layout, rst_layout(env)[0], c.control_dt)
     return r
 
 
@@ -465,6 +479,41 @@ def _box_stacking_fields(r, t: BoxStackingTask, layout: FusedLayout, rst):
         r[k] = v
 
 
+def _single_box_fields(r, t, layout: FusedLayout, rst, control_dt) -> None:
+    """The rows and constants of the single-box tasks' steps: each task
+    state's row in rows_f or rows_i and in the reset operand (every one of
+    them comes from the sampled reset rows)."""
+    for k in t.init_task_states(1, "cpu"):
+        name = f"ts.{k}"
+        if name in layout.offs_f:
+            r[f"f_{k}"] = layout.offs_f[name][0]
+        else:
+            r[f"i_{k}"] = layout.offs_i[name][0]
+        r[f"r_{k}"] = rst[k][0]
+    hold = (t.hold_duration_threshold if isinstance(t, BoxPushingTask)
+            else t.align_duration_threshold)
+    vals = dict(t_contact_thr=t.contact_binary_threshold,
+                t_prox_thr=math.sqrt(3.0) * t.box_size / 2.0 * 1.2,
+                t_thr_steps=int(round(hold / control_dt)))
+    if isinstance(t, BoxPushingTask):
+        vals.update(t_lift_z=t.box_z + t.lift_tolerance, t_d_prox=t.proximity_decay,
+                    bp_pos_tol=t.position_tolerance, bp_rest_speed=t.rest_speed_tolerance,
+                    bp_overshoot=t.max_overshoot, bp_d_dist=t.distance_decay)
+    else:
+        vals.update(ro_period=t.period, ro_yaw_tol=t.yaw_tolerance,
+                    ro_d_orient=t.orientation_decay)
+    if isinstance(t, BoxReorientationTask):
+        vals.update(t_lift_z=t.box_z + t.lift_tolerance, t_d_prox=t.proximity_decay,
+                    ro_drift_tol=t.position_drift_tolerance, ro_max_drift=t.max_drift,
+                    ro_d_drift=t.drift_decay)
+    elif isinstance(t, InHandReorientationTask):
+        vals.update(ih_hang_z=t.hang_z, ih_drop_band=t.drop_band,
+                    ih_drop_z=t.hang_z - t.drop_band, ih_escape=t.escape_distance,
+                    ih_d_height=t.height_decay)
+    for k, v in vals.items():
+        r[k] = v
+
+
 # f32 operations of fs_env_step (csrc/fused_step.cu) outside the lane
 # physics, counted from its code as lane_step counts the physics: each add,
 # mul, compare/select, divide and sqrt/exp counts one; integer work none.
@@ -485,8 +534,20 @@ _COMP_KIND_FLOPS = (0, 1, 0, 1, 2, 1, 3, 1, 3)  # by comp_kind (CK_* in fused_st
 # under-box 58); BoxStacking's stack target and its distances, 5 pad
 # distances, finger-box contact, the bridge, stacked, hold and criteria, the
 # per-tip hitting-ground check (5 x 13), its rewards (under-box 35) and the
-# second box's 13 merge selects
+# second box's 13 merge selects; the single-box tasks' fingers on the box
+# (box contact, 5 pad distances and checks), then BoxReorientation's and
+# InHandReorientation's yaw (10), symmetric error (6), 4 sines and cosines,
+# drift or hand distance and height error, aligned counter, rewards and
+# merge, and BoxPushing's target distance, speed, hold counter, criteria,
+# rewards and merge
+_FINGERS_ON_BOX = _NORM3 + 1 + 5 * (_NORM3 + 3)
 _TASK_FLOPS = {
+    "fused_step_reorient": (10 + 6 + 4 + _FINGERS_ON_BOX + 6 + 2 + 1 + 2 + 2 + 2 + 1 + 1 + 1
+                            + 6 + 2 + 1 + 5),
+    "fused_step_inhand": (10 + 6 + 4 + _FINGERS_ON_BOX + 9 + 2 + 5 + 1 + 2 + 1 + 2 + 2 + 2 + 1
+                          + 1 + 1 + 2 + 2),
+    "fused_step_pushing": (2 + 4 + 6 + _FINGERS_ON_BOX + 2 + 1 + 2 + 2 + 1 + 2 + 1 + 6 + 1 + 1
+                           + 4),
     "fused_step": (5 * _NORM3 + 10 + _NORM3 + 10 * _NORM3 + 9 + _NORM3 + 1 + 10 + 1 + 1 + 1 + 3
                    + 3 + 2 + 5 + 3 + 3 * _NORM3 + 3 + 1 + 9 + 4 + 5 + 16 + 5 + 3 + 5 * _NORM3
                    + 4 + 4 + 16 + 10 + 2 + 3 + 58),
@@ -544,11 +605,18 @@ def _lib(build: str) -> ctypes.CDLL:
     return lib
 
 
-def build_fused_step(env):
+def build_fused_step(env, lib: ctypes.CDLL | None = None):
     """The fused step for a DexHandEnv: a namespace with `step_fn(fs,
     actions, operands=None)`, `pack`/`unpack`, `reset()`, `comp_names`,
     `layout`, `obs_dim`, `kernel` (the raw K1 wrapper on rows) and
-    `kernel_plain` (its plain version). Raises FusedUnsupported."""
+    `kernel_plain` (its plain version). Raises FusedUnsupported.
+
+    `lib` is the K1 library the wrapper launches: by default the task's
+    build, compiled by nvcc, for an env on the card, and none for an env on
+    the CPU, where the wrapper runs the plain version. The config record is
+    built here from it, so a configuration whose rows do not fit that
+    build's staging in shared memory raises FusedUnsupported now, not at
+    the first launch (and `fused=auto` falls back to the unfused step)."""
     _check_supported(env)
     c = env.comps
     build = build_for(c.task)
@@ -561,6 +629,11 @@ def build_fused_step(env):
     n_comp = len(comp_names)
     bufs: Dict[str, torch.Tensor] = {}
     sd_row = layout.offs_f.get("ts.spawn_difficulty", (None,))[0]
+    if lib is None and c.engine.device.type == "cuda":
+        lib = _lib(build)
+    if lib is not None:
+        bufs["cfg"] = lane_step.record_buffer(
+            fused_config_array(env, layout, comp_names, rst_rows, lib), c.engine.device)
 
     def reset_from_rows(rst_T) -> TaskReset:
         """Inverse of `operand_rows` for the reset values."""
@@ -580,15 +653,11 @@ def build_fused_step(env):
         if rows_f.device.type == "cpu":
             return kernel_plain(rows_f, rows_i, act_T, rst_T, drn_T, spw_T)
         lane_step.require_cuda(rows_f)
-        lib = _lib(build)
         n = rows_f.shape[1]
         # raises unless the operands are on the engine's device, where both
-        # buffers live
+        # buffers live (a CUDA engine's: its library and config are built)
         model = lane_step.model_buffer(c.engine, c.physics_steps_per_control, lib,
                                        rows_f.device)
-        if "cfg" not in bufs:
-            bufs["cfg"] = lane_step.record_buffer(
-                fused_config_array(env, layout, comp_names, rst_rows, lib), c.engine.device)
         ins = [lane_step.check_rows(rows_f, layout.rows_f, n),
                lane_step.check_rows(rows_i, layout.rows_i, n, torch.int32),
                lane_step.check_rows(act_T, c.num_actions, n),

@@ -51,6 +51,13 @@ def detect_finger_box_contacts(obs_dict, box_contact_force, box_pos, box_size,
     return (obs_dict["contact_binary"] > 0.5) & box_has[:, None] & proximity
 
 
+def symmetric_angle_error(angle, target, period: float) -> torch.Tensor:
+    """Signed shortest error modulo `period` (a cube's yaw repeats every
+    quarter turn). torch.round rounds half to even, as jnp.round does."""
+    err = angle - target
+    return err - period * torch.round(err / period)
+
+
 def curriculum_scale(difficulty, min_fraction: float, enabled: bool = True):
     if not enabled or difficulty is None:
         return 1.0

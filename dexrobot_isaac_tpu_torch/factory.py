@@ -22,7 +22,10 @@ from dexrobot_isaac_tpu_torch.envs.dexhand import DexHandEnv, EnvComponents
 from dexrobot_isaac_tpu_torch.envs.tasks.api import DexTask
 from dexrobot_isaac_tpu_torch.envs.tasks.base_task import BaseTask
 from dexrobot_isaac_tpu_torch.envs.tasks.blind_grasping import BlindGraspingTask
+from dexrobot_isaac_tpu_torch.envs.tasks.box_pushing import BoxPushingTask
+from dexrobot_isaac_tpu_torch.envs.tasks.box_reorientation import BoxReorientationTask
 from dexrobot_isaac_tpu_torch.envs.tasks.box_stacking import BoxStackingTask
+from dexrobot_isaac_tpu_torch.envs.tasks.in_hand_reorientation import InHandReorientationTask
 from dexrobot_isaac_tpu_torch.models.dexhand021 import build_hand_model
 from dexrobot_isaac_tpu_torch.physics.engine import HandPhysics
 from dexrobot_isaac_tpu_torch.physics.lane_step import min_site_z
@@ -34,6 +37,9 @@ TASK_REGISTRY: Dict[str, Type[DexTask]] = {
     "BaseTask": BaseTask,
     "BlindGrasping": BlindGraspingTask,
     "BoxStacking": BoxStackingTask,
+    "BoxReorientation": BoxReorientationTask,
+    "InHandReorientation": InHandReorientationTask,
+    "BoxPushing": BoxPushingTask,
 }
 
 

@@ -84,6 +84,23 @@ def _fused_mode(raw) -> str:
     return {"false": "off", "0": "off", "true": "on", "1": "on"}.get(mode, mode)
 
 
+def choose_fused_step(env, mode: str, device: torch.device, logger):
+    """The fused step for training, or None for the unfused one: `on` builds
+    it (raising FusedUnsupported where the configuration has none), `auto`
+    builds it on the card and falls back where it is unsupported (a task
+    without a K1 build, Coriolis terms, rows past K1's staging), `off`
+    declines it."""
+    if mode == "off" or (mode == "auto" and device.type != "cuda"):
+        return None
+    try:
+        return env.make_fused()
+    except FusedUnsupported as e:
+        if mode == "on":
+            raise
+        logger.info(f"Fused env-step unavailable ({e}); unfused step")
+        return None
+
+
 def usage_text() -> str:
     lines = [__doc__.strip(), "", "Aliases:"]
     lines += [f"  {alias:16} -> {path}" for alias, path in ALIASES.items()]
@@ -119,15 +136,8 @@ def build(cfg: Dict[str, Any]) -> CliRun:
     logger.info(f"Env: {env.num_envs} envs, obs {env.num_obs}"
                 + (f" (+{env.num_states} critic states)" if env.num_states else "")
                 + f", actions {env.num_actions}, control_dt {env.control_dt:.3f}s")
-    fused = None
     mode_f = _fused_mode(get_by_path(cfg, "train.params.config.fused", "auto"))
-    if not test_mode and (mode_f == "on" or (mode_f == "auto" and device.type == "cuda")):
-        try:
-            fused = env.make_fused()
-        except FusedUnsupported as e:
-            if mode_f == "on":
-                raise
-            logger.info(f"Fused env-step unavailable ({e}); unfused step")
+    fused = None if test_mode else choose_fused_step(env, mode_f, device, logger)
     learner = PPOLearner(ppo_config_from(cfg, env), fused.step_fn if fused else env.step_fn,
                          seed=seed, device=device)
     if fused is not None:

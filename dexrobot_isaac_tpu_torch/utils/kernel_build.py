@@ -31,6 +31,9 @@ BUILDS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "fused_step": ("fused_step", ()),                           # K1, BlindGrasping
     "fused_step_base": ("fused_step", ("-DFS_TASK=0",)),          # K1, BaseTask
     "fused_step_stacking": ("fused_step", ("-DFS_TASK=2", "-DLP_HAS_BOX2=1")),  # K1, BoxStacking
+    "fused_step_reorient": ("fused_step", ("-DFS_TASK=3",)),      # K1, BoxReorientation
+    "fused_step_inhand": ("fused_step", ("-DFS_TASK=4",)),        # K1, InHandReorientation
+    "fused_step_pushing": ("fused_step", ("-DFS_TASK=5",)),       # K1, BoxPushing
     "spd_solve": ("spd_solve", ()),                             # K3
 }
 NVCC_FLAGS = [

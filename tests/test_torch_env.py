@@ -212,19 +212,23 @@ def test_coriolis_step_fn_matches_jax(coriolis_runs, t):
 
 
 def test_fused_step_refuses_unported_task():
-    """BoxPushing is not ported yet: the factory refuses it, and a task
-    without a K1 build of its own (a stand-in of that name that overrides
-    BaseTask's step) makes `make_fused` raise FusedUnsupported."""
-    with pytest.raises(ValueError, match="BoxPushing"):
-        make_env(load_config(["task=BoxPushing", "numEnvs=2"]), device="cpu")
+    """What K1 still refuses: a task with a custom pre-action rule (the port
+    runs the default rule only) makes `make_fused` raise FusedUnsupported,
+    and so does a task without a K1 build of its own (a subclass of a
+    ported task that overrides its step)."""
+    env = make_env(load_config(["task=BoxPushing", "numEnvs=2"]), device="cpu")
+    assert env.make_fused().build == "fused_step_pushing"
+    env.comps.task.pre_action_rule = lambda *args: None
+    with pytest.raises(FusedUnsupported, match="pre-action rule"):
+        env.make_fused()
 
-    class BoxPushing(BaseTask):
-        name = "BoxPushing"
+    class OwnStep(BaseTask):
+        name = "OwnStep"
 
         def compute_step(self, obs_dict, task_states, *args, **kwargs):
             return TaskStep({}, task_states, {}, {}, {})
 
     env = make_env(load_config(["task=BaseTask", "numEnvs=2"]), device="cpu")
-    env.comps.task = BoxPushing(env.comps.task.cfg)
-    with pytest.raises(FusedUnsupported, match="BoxPushing"):
+    env.comps.task = OwnStep(env.comps.task.cfg)
+    with pytest.raises(FusedUnsupported, match="OwnStep"):
         env.make_fused()

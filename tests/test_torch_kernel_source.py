@@ -14,11 +14,15 @@ another lane writes in the same phase does not), and each env's slot of
 shared memory stays within the budget the design states. Every build of
 `kernel_build.BUILDS` but K3's is built here with its defines: K2 with the
 second box (held to the plain engine on a two-cube state), and K1's
-BaseTask and BoxStacking builds (held to the plain fused step); the
-BlindGrasping builds keep their slot sizes.
+BaseTask, BoxStacking, BoxReorientation, InHandReorientation and BoxPushing
+builds (held to the plain fused step, as the BlindGrasping build is on the
+README recipe and on BlindGraspingClearance); the BlindGrasping builds keep
+their slot sizes, every shipped configuration fits its build's staging, and
+one that does not is refused when the fused step is made.
 """
 
 import ctypes
+import logging
 import os
 import subprocess
 
@@ -26,7 +30,9 @@ import numpy as np
 import pytest
 import torch
 
+from dexrobot_isaac_tpu_torch import train as cli
 from dexrobot_isaac_tpu_torch.envs import fused_step as fsm
+from dexrobot_isaac_tpu_torch.envs.fused_step import FusedUnsupported
 from dexrobot_isaac_tpu_torch.factory import make_env
 from dexrobot_isaac_tpu_torch.physics import lane_step as ls
 from dexrobot_isaac_tpu_torch.physics.engine import HandPhysics
@@ -335,10 +341,11 @@ def test_blind_grasping_slots_unchanged(host_libs):
 
 
 @pytest.mark.parametrize("build,blocks", [("control_step_box2", 3), ("fused_step_stacking", 3),
-                                          ("fused_step_base", 4)])
+                                          ("fused_step_base", 4), ("fused_step_reorient", 4),
+                                          ("fused_step_inhand", 4), ("fused_step_pushing", 4)])
 def test_task_build_slots_within_budget(host_libs, build, blocks):
     """The two-box builds' slots fit 3 blocks of 8 envs per SM (24 envs),
-    BaseTask's K1 the one-box design's 4 (32 envs)."""
+    the one-box task builds of K1 the one-box design's 4 (32 envs)."""
     lib = host_libs[build]
     if build.startswith("control_step"):
         cs, _, envs, budget = ls.shared_layout(lib)
@@ -349,11 +356,21 @@ def test_task_build_slots_within_budget(host_libs, build, blocks):
 
 
 # ---------------------------------------------------------------- the task builds
+# K1's task builds, by test id: the configuration each is held on
+SCENES = {"BoxStacking": "task=BoxStacking", "BaseTask": "task=BaseTask",
+          "BoxReorientation": "task=BoxReorientation",
+          "InHandReorientation": "task=InHandReorientation",
+          "InHandFingersOnly": "experiments=InHandFingersOnly", "BoxPushing": "task=BoxPushing",
+          "BlindGraspingCurriculum": "experiments=BlindGraspingCurriculum",
+          "BlindGraspingClearance": "experiments=BlindGraspingClearance"}
+
+
 def _scene(task, n=16, seed=3):
-    """`task` at n envs (2 substeps) after 3 plain steps of random actions;
-    for BoxStacking, every other env's pick cube then rests on the platform
-    (cube-cube contact) and the rest keep theirs on the ground."""
-    env = make_env(load_config([f"task={task}", f"numEnvs={n}", "sim.substeps=2"]), seed=seed,
+    """`task` (a SCENES id) at n envs (2 substeps) after 3 plain steps of
+    random actions; for BoxStacking, every other env's pick cube then rests
+    on the platform (cube-cube contact) and the rest keep theirs on the
+    ground."""
+    env = make_env(load_config([SCENES[task], f"numEnvs={n}", "sim.substeps=2"]), seed=seed,
                    device="cpu")
     fused = env.make_fused()
     fs, _ = fused.reset()
@@ -369,7 +386,7 @@ def _scene(task, n=16, seed=3):
     return env, fused, fs, g
 
 
-@pytest.fixture(scope="module", params=["BoxStacking", "BaseTask"])
+@pytest.fixture(scope="module", params=list(SCENES))
 def task_scene(request):
     return _scene(request.param)
 
@@ -405,9 +422,8 @@ def test_control_step_box2_source_matches_plain(host_libs):
 
 
 def test_fused_task_source_matches_plain(host_libs, task_scene):
-    """K1's BoxStacking and BaseTask builds against the plain fused step
-    (half the envs resetting), with their lanes forward and in reverse
-    bitwise equal."""
+    """Each task build of K1 against the plain fused step (half the envs
+    resetting), with its lanes forward and in reverse bitwise equal."""
     env, fused, fs, g = task_scene
     n, lib = fs.rows_f.shape[1], host_libs[fused.build]
     fs.rows_i[fused.layout.offs_i["episode_step_count"][0], ::2] = (
@@ -432,3 +448,52 @@ def test_fused_task_source_matches_plain(host_libs, task_scene):
     for h, p, atol in ((fwd[0], rf2, 1e-3), (fwd[2], plain[0], 1e-2), (fwd[3], plain[1], 2e-4),
                        (fwd[4], plain[2], 1e-3), (fwd[6], plain[4], 1e-3)):
         torch.testing.assert_close(h, p, rtol=1e-4, atol=atol)
+
+
+# ---------------------------------------------------------------- the staging
+EXPERIMENTS = sorted(f[:-5] for f in os.listdir(os.path.join(
+    REPO, "dexrobot_isaac_tpu_torch", "cfg", "experiments")) if f.endswith(".json"))
+
+
+@pytest.mark.parametrize("experiment", EXPERIMENTS)
+def test_every_experiment_fits_its_build(host_libs, experiment):
+    """Every shipped experiment's rows fit its K1 build's staging in shared
+    memory: the fused step, made with that build's library, builds its
+    config record (BlindGraspingClearance's 443 output words included)."""
+    env = make_env(load_config([f"experiments={experiment}", "numEnvs=2"]), device="cpu")
+    build = fsm.build_for(env.comps.task)
+    fused = fsm.build_fused_step(env, lib=host_libs[build])
+    in_cap, out_cap = fsm.shared_layout(host_libs[build])[3:]
+    lay = fused.layout
+    assert lay.rows_f + lay.rows_i + env.num_actions + fused.rst_rows + 7 <= in_cap
+    assert lay.rows_c + fused.obs_dim + 5 + len(fused.comp_names) <= out_cap
+    if experiment == "BlindGraspingClearance":
+        assert lay.rows_c + fused.obs_dim + 5 + len(fused.comp_names) == 443
+
+
+def test_staging_overflow_is_refused_when_made(host_libs):
+    """A configuration past K1's output staging (the Clearance experiment
+    with 35 more critic dims) raises FusedUnsupported when the fused step is
+    made with the build's library, not at its first launch; the CLI's
+    `fused=auto` then trains on the unfused step and `fused=on` raises."""
+    cfg = load_config(["experiments=BlindGraspingClearance", "numEnvs=2"])
+    cfg["task"]["critic_observation_keys"] = (list(cfg["task"]["critic_observation_keys"])
+                                              + ["fingertip_poses_hand"])
+    env = make_env(cfg, device="cpu")
+    with pytest.raises(FusedUnsupported, match="staging"):
+        fsm.build_fused_step(env, lib=host_libs["fused_step"])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(type(env), "make_fused",
+                   lambda self: fsm.build_fused_step(self, lib=host_libs["fused_step"]))
+        card = torch.device("cuda")  # the CLI's choice on the card (nothing runs there)
+        logger = logging.getLogger("dexhand_tpu")
+        assert cli.choose_fused_step(env, "auto", card, logger) is None
+        with pytest.raises(FusedUnsupported, match="staging"):
+            cli.choose_fused_step(env, "on", card, logger)
+        assert cli.choose_fused_step(env, "off", card, logger) is None
+    ok = make_env(load_config(["experiments=BlindGraspingClearance", "numEnvs=2"]),
+                  device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(type(ok), "make_fused",
+                   lambda self: fsm.build_fused_step(self, lib=host_libs["fused_step"]))
+        assert cli.choose_fused_step(ok, "auto", card, logger).build == "fused_step"
