@@ -79,6 +79,28 @@ failing the run when it fails:
            iteration each of BoxReorientation, InHandReorientation and
            BoxPushing with fused=auto, which must take the task's K1 build,
            and an evaluation from the InHandReorientation checkpoint (K2).
+   rules   the env's user surface (`surface_phases`): the harness's
+           rule-based BlindGrasping task (tools/dexhand_test.py: a circle of
+           the base and an adaptive grasp as the pre-action rule, 0 policy
+           actions) at 4096 envs: make_fused declines it naming the rule;
+           one unfused step through K2 against the plain step on the same
+           inputs (obs atol 2e-4, reward atol 1e-3, done exact); then 100
+           steps, counted: K2 launches 100 and the base of env 0 moves more
+           than 1 mm.
+   mjcf    BlindGrasping on env.handAsset (the vendored MJCF hand, whose
+           spheres and finger pairs come in another order) at 4096 envs:
+           K1 against the plain fused step (no mask mismatch, obs atol
+           2e-4, reward atol 1e-3), K2 against the plain engine (1e-3
+           relative), the built-in hand's K1 on the same inputs (printed),
+           and one training iteration through the CLI with fused=auto,
+           which must take K1.
+   export  the [train] checkpoint exported as npz, bin and TorchScript; on
+           4096 rollout observations the TorchScript module on the card and
+           NumpyPolicy on the host agree with act_deterministic within 1e-4.
+   profile the CLI with train.profile=1 for 2 BaseTask iterations: the
+           trace exists and names K1's kernel (fused_step_kernel).
+   diag    tools/diag_rollout.py from the [train] checkpoint, 4096 envs x 50
+           steps on the unfused step: K2 launches 50.
 9. numbers env-steps/s of the 600-step rollout and each kernel's ms per
            launch, device time with its launches queued behind a sleeping
            kernel so that the host's launch overhead stays out
@@ -335,6 +357,188 @@ def plain_steps(env, gen, dev, n, k):
         acts = torch.rand(n, env.num_actions, generator=gen, device=dev) * 2 - 1
         state, *_ = env._step(state, acts, *samples, env._plain_control_step)
     return state
+
+
+MJCF_XML = os.path.join(ROOT, "dexrobot_isaac_tpu", "assets",
+                        "dexhand021_right_simplified_floating.xml")
+RULE_STEPS = 100
+DIAG_STEPS = 50
+
+
+def unfused_vs_plain(env, state, acts):
+    """One unfused step through K2 (`env._control_step`) and through the
+    plain engine, on the same state, actions and samples: the max errors of
+    obs (and the next rule targets) and reward, the done-mask mismatches
+    and the dones."""
+    samples = env.draw_samples(state.physics.q.shape[0], state.difficulty)
+    ks, ko, kr, kd, _ = env._step(state, acts, *samples, env._control_step)
+    ps, po, pr, pd, _ = env._step(state, acts, *samples, env._plain_control_step)
+    torch.cuda.synchronize()
+    rule = float((ks.active_rule_targets - ps.active_rule_targets).abs().max())
+    return (max(float((ko - po).abs().max()), rule), float((kr - pr).abs().max()),
+            int((kd != pd).sum()), int(pd.sum()))
+
+
+def surface_phases(dev, n, gen, train_run, tr, ckpt, horizon):
+    """The env's user surface on the card: a rule-based controller
+    ([rules]), the hand loaded from MJCF ([mjcf]), export of the [train]
+    checkpoint ([export]), `train.profile` ([profile]) and `diag_rollout`
+    ([diag]). Returns {phase: launches} of the counted runs."""
+    from dexrobot_isaac_tpu_torch.envs.fused_step import FusedUnsupported
+    from dexrobot_isaac_tpu_torch.factory import make_env
+    from dexrobot_isaac_tpu_torch.physics import lane_step
+    from dexrobot_isaac_tpu_torch.physics.types import box_rows
+    from dexrobot_isaac_tpu_torch.rl import export
+    from dexrobot_isaac_tpu_torch.tools import dexhand_test, diag_rollout
+    from dexrobot_isaac_tpu_torch.utils.config import load_config
+
+    counted = {}
+    # ---- [rules]: the harness's rule-based controllers, 0 policy actions
+    t0 = time.perf_counter()
+    env = make_env(dexhand_test.rule_based_config(load_config(
+        ["task=BlindGrasping", f"numEnvs={n}"])), seed=13, device=dev)
+    check(env.num_actions == 0, f"the rule-based task has {env.num_actions} actions")
+    try:
+        env.make_fused()
+        raise RuntimeError("make_fused accepted a task with a pre-action rule")
+    except FusedUnsupported as e:
+        log(f"[rules] make_fused declines: {e}")
+        check("pre_action_rule" in str(e), "FusedUnsupported does not name the rule")
+    state = plain_steps(env, gen, dev, n, 3)
+    # every other env at its last step: the reset merge carries the rule's
+    # targets of half the envs and the reset's of the others
+    state.episode_step_count[::2] = env.comps.term_cfg.max_episode_length - 2
+    acts = torch.zeros(n, 0, device=dev)
+    e_obs, e_rew, mism, dones = unfused_vs_plain(env, state, acts)
+    log(f"[rules] one unfused step (K2) vs the plain step at {n} envs from a contact-rich "
+        f"state: done mismatches {mism} (dones {dones}), max abs err obs and rule targets "
+        f"{e_obs:.3e} "
+        f"(atol 2e-4) rew {e_rew:.3e} (atol 1e-3)")
+    check(mism == 0 and dones >= n // 2 and e_obs <= 2e-4 and e_rew <= 1e-3,
+          "the rule-based unfused step through K2 disagrees with the plain step")
+    env.reset()
+    xs = [float(env.state.physics.q[0, 0])]
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    t1 = time.perf_counter()
+    for _ in range(RULE_STEPS):
+        obs, rew, done, _ = env.step(acts)
+        xs.append(float(env.state.physics.q[0, 0]))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    counted["rules"] = dict(kb.LAUNCHES)
+    finite = bool(torch.isfinite(obs).all() & torch.isfinite(rew).all())
+    log(f"[rules] {RULE_STEPS} rule-driven steps x {n} envs: {RULE_STEPS * n / secs:,.0f} "
+        f"env-steps/s; base x of env 0 spans {max(xs) - min(xs):.4f} m; finite {finite}; "
+        f"launches {counted['rules']}; phase {time.perf_counter() - t0:.1f} s")
+    check(finite and max(xs) - min(xs) > 1e-3 and counted["rules"]["control_step"] == RULE_STEPS,
+          "the rule-based path did not move the base or missed K2")
+
+    # ---- [mjcf]: BlindGrasping on the hand loaded from the vendored MJCF file
+    t0 = time.perf_counter()
+    cfg_m = ["task=BlindGrasping", f"env.handAsset={MJCF_XML}"]
+    env_m, fused_m, state_m = _task_env(make_env, load_config, gen, dev, cfg_m, n=n)
+    builtin = make_env(load_config(["task=BlindGrasping", f"numEnvs={n}"]), seed=9, device=dev)
+    check(not np.array_equal(env_m.comps.model.sphere_pos, builtin.comps.model.sphere_pos),
+          "the MJCF hand's spheres come in the built-in order: the phase tests nothing new")
+    err, (fs_m, ins_m), ko_m, done_m, _ = k1_vs_plain(fused_m, env_m, state_m, gen, dev, n)
+    log(f"[mjcf] K1 {fused_m.build} vs plain at {n} envs on the MJCF hand: mask mismatches "
+        f"{err['mask_mismatches']} (dones {done_m}); max abs err obs {err['obs']:.3e} (atol "
+        f"2e-4) rew {err['rew']:.3e} (atol 1e-3) comp {err['comp']:.3e}; envs beyond the "
+        f"tolerances {err['envs_off']}; two launches bitwise equal {err['bitwise']}")
+    check(err["mask_mismatches"] == 0 and err["obs"] <= 2e-4 and err["rew"] <= 1e-3
+          and err["bitwise"] and done_m >= n // 2, "K1 disagrees with the plain fused step on "
+          "the MJCF hand")
+    c_m = env_m.comps
+    spawn = env_m._spawn.expand(n, 3)
+    ph, tgt, dr = state_m.physics, state_m.full_dof_targets, state_m.dr
+    kst, kinfo, kkin = lane_step.build_control_step(c_m.engine, c_m.physics_steps_per_control)(
+        ph, tgt, spawn, dr)
+    pst, pinfo, pkin = c_m.engine.plain_control_step(c_m.physics_steps_per_control)(
+        ph, tgt, spawn, dr)
+    torch.cuda.synchronize()
+    k2m = {"q": rel_err(kst.q, pst.q), "qd": rel_err(kst.qd, pst.qd),
+           "box": rel_err(box_rows(kst, False), box_rows(pst, False)),
+           "contact_force": rel_err(kinfo.body_contact_force, pinfo.body_contact_force),
+           "box_force": rel_err(kinfo.box_contact_force, pinfo.box_contact_force),
+           "site_pos": rel_err(kkin.site_pos, pkin.site_pos)}
+    n_contact = int((pinfo.body_contact_force.abs().sum((1, 2)) > 0).sum())
+    log(f"[mjcf] K2 control step vs plain at {n} envs on the MJCF hand ({n_contact} envs in "
+        "hand contact): relative err " + " ".join(f"{k} {v:.2e}" for k, v in k2m.items()))
+    check(all(v <= 1e-3 for v in k2m.values()) and n_contact > 0,
+          "K2 disagrees with the plain engine on the MJCF hand")
+    rf_b, ri_b = fs_m.rows_f.clone(), fs_m.rows_i.clone()
+    ko_b = builtin.make_fused().kernel(rf_b, ri_b, *ins_m)
+    torch.cuda.synchronize()
+    log(f"[mjcf] the built-in hand's K1 on the same inputs: max abs obs difference "
+        f"{float((ko_b[1] - ko_m[1]).abs().max()):.3e} (printed, not gated: the two models "
+        "order their spheres and pairs differently)")
+    mj, mj_launches, mj_s = train_run(cfg_m + [
+        f"numEnvs={n}", "train.logging.noLogFile=true", "maxIterations=1",
+        "train.params.config.save_frequency=1", "train.params.config.log_interval=1"], True)
+    counted["mjcf"] = mj_launches
+    s_ = mj.stats[-1]
+    log(f"[mjcf] 1 PPO iteration x {horizon} steps x {n} envs on the MJCF hand through the CLI "
+        f"(fused=auto) in {mj_s:.2f} s, {s_['env_steps_per_s']:,.0f} env-steps/s; launches "
+        f"{mj_launches}; phase {time.perf_counter() - t0:.1f} s")
+    check(mj.fused is not None and mj.fused.build == "fused_step"
+          and mj_launches["fused_step"] == horizon
+          and np.isfinite(list(s_.values())).all(), f"MJCF training missed K1: {mj_launches}")
+
+    # ---- [export]: the [train] checkpoint as npz, bin and TorchScript
+    t0 = time.perf_counter()
+    stem = os.path.splitext(ckpt)[0]
+    paths = {fmt: export.EXPORTERS[fmt](ckpt, stem + ext) for fmt, ext in export.EXTENSIONS.items()}
+    env_e = tr.env
+    state_e, obs_e = env_e.reset_fn()
+    for _ in range(5):  # rollout observations under the trained policy
+        state_e, obs_e, *_ = env_e.step_fn(state_e, tr.learner.act_deterministic(tr.ppo, obs_e))
+    ref = tr.learner.act_deterministic(tr.ppo, obs_e)
+    ts = torch.jit.load(paths["torchscript"], map_location=dev)
+    with torch.no_grad():
+        a_ts = ts(obs_e)
+    a_np = torch.as_tensor(export.NumpyPolicy.load(paths["npz"])(obs_e.cpu().numpy()), device=dev)
+    torch.cuda.synchronize()
+    w = export.extract_actor(ckpt)
+    n_bin = 4 + 16 + 8 * int(w["num_obs"]) + sum(
+        8 + 4 * (v.size + w[k[:-1] + "b"].size) for k, v in w.items() if k.endswith("_w"))
+    d_ts, d_np = float((a_ts - ref).abs().max()), float((a_np - ref).abs().max())
+    with open(paths["bin"], "rb") as f:
+        head = f.read(4)
+    log(f"[export] {os.path.relpath(ckpt, ROOT)} -> npz, bin ({os.path.getsize(paths['bin'])} "
+        f"bytes), TorchScript; on {tuple(obs_e.shape)} rollout observations: TorchScript on the "
+        f"card vs act_deterministic {d_ts:.3e}, NumpyPolicy on the host vs act_deterministic "
+        f"{d_np:.3e} (tol 1e-4); {time.perf_counter() - t0:.1f} s")
+    check(obs_e.shape[0] == n and d_ts <= 1e-4 and d_np <= 1e-4 and head == b"DXP1"
+          and os.path.getsize(paths["bin"]) == n_bin, "an exported policy disagrees with "
+          "act_deterministic, or the bin is malformed")
+
+    # ---- [profile]: train.profile=1 on BaseTask, 2 iterations
+    t0 = time.perf_counter()
+    pr, pr_launches, pr_s = train_run([
+        "task=BaseTask", f"numEnvs={n}", "train.logging.noLogFile=true", "maxIterations=2",
+        "train.profile=1", "train.params.config.log_interval=1"], True)
+    trace = os.path.join(pr.run_dir, "profile", "trace.json")
+    with open(trace) as f:
+        text = f.read()
+    named = text.count("fused_step_kernel")
+    log(f"[profile] 2 BaseTask iterations with train.profile=1 in {pr_s:.2f} s: "
+        f"{os.path.relpath(trace, ROOT)} {len(text) / 1e6:.1f} MB, events naming "
+        f"fused_step_kernel {named}; launches {pr_launches}; {time.perf_counter() - t0:.1f} s")
+    check(named > 0 and pr_launches["fused_step_base"] == 2 * pr.learner.cfg.horizon_length,
+          "the profile trace does not name K1's kernel")
+
+    # ---- [diag]: diag_rollout from the [train] checkpoint
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    counts = diag_rollout.run(ckpt, "BlindGrasping", 1.0, n, DIAG_STEPS, dev.type)
+    torch.cuda.synchronize()
+    counted["diag"] = dict(kb.LAUNCHES)
+    log(f"[diag] diag_rollout {n} envs x {DIAG_STEPS} steps: {counts['episodes']} episodes; "
+        f"launches {counted['diag']}; {time.perf_counter() - t0:.1f} s")
+    check(counted["diag"]["control_step"] == DIAG_STEPS, "diag_rollout missed K2")
+    return counted
 
 
 def main() -> int:
@@ -741,6 +945,9 @@ def main() -> int:
         f"{iev.stats[-1]} in {iev_s:.2f} s; launches {iev_launches}")
     check(iev_launches["control_step"] > 0 and iev.stats[-1]["episodes"] >= N_ENVS,
           f"InHandReorientation evaluation missed K2: {iev_launches}")
+
+    # ---------------------------------------------------------------- user surface
+    surface = surface_phases(dev, N_ENVS, gen, train_run, tr, ckpt, horizon)
 
     # ---------------------------------------------------------------- 9 numbers
     # kernel timings on the phase-3/4/5 inputs (launches here are not counted).

@@ -15,7 +15,8 @@ them by attribute name, so both packages compute on the same values:
   `ActorCritic` params (`PPOState.params`);
 - `running_mean_std`: a JAX `RunningMeanStd` -> the port's.
 
-Reading the JAX package's `.ckpt` files (flax msgpack) is not supported.
+`rl/checkpoint.py` reads the JAX package's `.ckpt` files (flax msgpack)
+itself and carries their params over through `actor_critic_from_flax`.
 
 The tensors go to the card unless the caller passes `device="cpu"`.
 """

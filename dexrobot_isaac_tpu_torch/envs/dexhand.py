@@ -20,6 +20,18 @@ Physics: on a CUDA tensor `step_fn` runs the lane-physics kernel
 (`SimParams.has_box2`, BoxStacking) carry the second box's state, reset it
 from the task's `box2_pos`/`box2_quat` and hand its contact force to the
 task.
+
+Action hooks: a task's `pre_action_rule(active_prev_targets, obs_dict)` runs
+after the observations of each step (and of the reset), and its output,
+carried as `EnvState.active_rule_targets`, is what the next step's action
+rule starts from (the segments the policy does not control keep it). Its
+`custom_action_rule` and `custom_post_filters` sit in the action pipeline
+(`envs/action.py`). The fused step declines all three.
+
+The stateful wrapper carries the JAX env's user API: `reset`/`step`,
+`observation_space`/`action_space`, `set_difficulty`, `get_obs_slice` and
+the `get_obs_index_for_*` lookups, `toggle_random_actions`, `seed` and
+`close`.
 """
 
 from __future__ import annotations
@@ -31,7 +43,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from dexrobot_isaac_tpu_torch.constants import NUM_DOFS
+from dexrobot_isaac_tpu_torch.constants import BASE_JOINT_NAMES, NUM_DOFS
 from dexrobot_isaac_tpu_torch.envs import action as action_mod
 from dexrobot_isaac_tpu_torch.envs import observations as obs_mod
 from dexrobot_isaac_tpu_torch.envs import rewards as rew_mod
@@ -98,6 +110,13 @@ class DexHandEnv:
         failure_names = {"hitting_ground", *c.task.failure_criteria}
         c.term_cfg.validate(set(c.task.success_criteria), failure_names)
         self.state: Optional[EnvState] = None
+        # key -> (start, end) in the policy observation tensor
+        self.obs_slices: Dict[str, Tuple[int, int]] = {}
+        ofs = 0
+        for k in c.obs_cfg.policy_observation_keys:
+            self.obs_slices[k] = (ofs, ofs + dims[k])
+            ofs += dims[k]
+        self._random_actions = False
 
     # ------------------------------------------------------------------
     def draw_samples(self, n: int, difficulty) -> Tuple[TaskReset, Optional[DRSample]]:
@@ -116,6 +135,8 @@ class DexHandEnv:
                              "reset_task did not provide box2_pos/box2_quat")
 
     def _observe(self, phys, kin, state_like, task_states):
+        """Default and task observations, the pre-action rule, the obs
+        buffer: (obs_dict, obs_buf, tstep, active_rule, duration, binary)."""
         c = self.comps
         obs_dict, new_duration, binary = obs_mod.compute_default_observations(
             c.obs_cfg, kin, phys.q, state_like["prev_dof_pos"],
@@ -131,13 +152,19 @@ class DexHandEnv:
                                     state_like["body_contact_force"],
                                     state_like["box_contact_force"], c.control_dt, **extra)
         obs_dict.update(tstep.task_obs)
+        # the pre-action rule (identity without one); its output is the next
+        # step's active_rule_targets
+        if c.task.pre_action_rule is not None:
+            active_rule = c.task.pre_action_rule(state_like["active_prev_targets"], obs_dict)
+        else:
+            active_rule = state_like["active_prev_targets"]
         obs_buf = obs_mod.concat_selected_observations(c.obs_cfg, obs_dict)
         if c.obs_cfg.critic_observation_keys:
             obs_buf = torch.cat([obs_buf, obs_mod.concat_selected_observations(
                 c.obs_cfg, obs_dict, keys=c.obs_cfg.critic_observation_keys)], dim=-1)
         if math.isfinite(c.clip_observations):
             obs_buf = obs_buf.clamp(-c.clip_observations, c.clip_observations)
-        return obs_dict, obs_buf, tstep, new_duration, binary
+        return obs_dict, obs_buf, tstep, active_rule, new_duration, binary
 
     def step_fn(self, state: EnvState, actions, samples=None):
         """One control step. `samples` = (TaskReset unprojected, DRSample or
@@ -168,7 +195,7 @@ class DexHandEnv:
             "prev_contact_binary": state.prev_contact_binary,
             "episode_step_count": state.episode_step_count,
         }
-        obs_dict, obs_buf, tstep, new_duration, binary = self._observe(
+        obs_dict, obs_buf, tstep, active_rule, new_duration, binary = self._observe(
             phys, kin, state_like, state.task_states)
         new_count = state.episode_step_count + 1
         failure = {**term_mod.builtin_failure_criteria(c.term_cfg, obs_dict),
@@ -220,7 +247,7 @@ class DexHandEnv:
             physics=new_phys,
             full_dof_targets=_where(done, rdof, full),
             active_prev_targets=_where(done, reset_active, active),
-            active_rule_targets=_where(done, reset_active, active),
+            active_rule_targets=_where(done, reset_active, active_rule),
             prev_actions=_where(done, 0.0, actions),
             prev_dof_pos=_where(done, rdof, phys.q),
             contact_duration_steps=_where(done, 0, new_duration),
@@ -243,6 +270,9 @@ class DexHandEnv:
             "episode_length": new_count,
             "reward_components": components,
             **term_info,
+            # each criterion's episode flag before the reset clears it
+            **{f"success_reason_{k}": v for k, v in new_s.items()},
+            **{f"failure_reason_{k}": v for k, v in new_f.items()},
         }
         if "spawn_difficulty" in state.task_states:
             # the curriculum's strict gate (train.py promote_strict): episodes
@@ -291,14 +321,15 @@ class DexHandEnv:
         }
         task_states = c.task.init_task_states(n, dev)
         task_states.update(reset_vals.task_states or {})
-        obs_dict, obs_buf, tstep, _, _ = self._observe(phys, kin, state_like, task_states)
+        obs_dict, obs_buf, tstep, active_rule, _, _ = self._observe(
+            phys, kin, state_like, task_states)
         failure_names = {*term_mod.builtin_failure_criteria(c.term_cfg, obs_dict),
                          *tstep.failure_criteria}
         state = EnvState(
             physics=phys,
             full_dof_targets=dof,
             active_prev_targets=reset_active,
-            active_rule_targets=reset_active,
+            active_rule_targets=active_rule,
             prev_actions=state_like["prev_actions"],
             prev_dof_pos=dof,
             contact_duration_steps=zeros(n, nc, dt=torch.int32),
@@ -334,5 +365,62 @@ class DexHandEnv:
     def step(self, actions):
         if self.state is None:
             self.reset()
+        if self._random_actions:
+            actions = torch.rand(self.num_envs, self.num_actions, generator=self.generator,
+                                 device=self.device) * 2 - 1
         self.state, obs, rew, done, extras = self.step_fn(self.state, actions)
         return obs, rew, done, extras
+
+    def toggle_random_actions(self) -> bool:
+        """Toggle the random-action override of `step`: uniform actions in
+        [-1, 1] from the env's generator (the reference's debug key,
+        dexhand_base.py:854-862)."""
+        self._random_actions = not self._random_actions
+        return self._random_actions
+
+    def seed(self, seed: int) -> None:
+        """Reseed the env's generator (resets and DR draws, random actions)."""
+        self.generator.manual_seed(seed)
+
+    def set_difficulty(self, value: float) -> None:
+        """The curriculum difficulty of the wrapper's own state (a loop that
+        holds its own EnvState replaces the `difficulty` leaf instead)."""
+        if self.state is not None:
+            self.state = dataclasses.replace(self.state, difficulty=torch.tensor(
+                float(value), dtype=torch.float32, device=self.device))
+
+    def get_obs_slice(self, key: str) -> Tuple[int, int]:
+        """(start, end) of `key` within the policy observation tensor."""
+        if key not in self.obs_slices:
+            raise KeyError(f"'{key}' is not in policy_observation_keys "
+                           f"(available: {sorted(self.obs_slices)})")
+        return self.obs_slices[key]
+
+    def get_obs_index_for_base_joint(self, joint_name: str, obs_type: str = "pos") -> int:
+        """Index of a base DOF within the policy tensor."""
+        key = {"pos": "base_dof_pos", "vel": "base_dof_vel", "target": "base_dof_target"}[obs_type]
+        return self.get_obs_slice(key)[0] + BASE_JOINT_NAMES.index(joint_name)
+
+    def get_obs_index_for_finger_control(self, control_index: int, obs_type: str = "pos") -> int:
+        """Index of an active finger control (0-11) within the policy tensor."""
+        key = {"pos": "active_finger_dof_pos", "vel": "active_finger_dof_vel",
+               "target": "active_finger_dof_target"}[obs_type]
+        return self.get_obs_slice(key)[0] + control_index
+
+    @property
+    def observation_space(self) -> "_Space":
+        return _Space((self.num_obs,))
+
+    @property
+    def action_space(self) -> "_Space":
+        return _Space((self.num_actions,), low=-1.0, high=1.0)
+
+    def close(self) -> None:
+        pass
+
+
+@dataclasses.dataclass
+class _Space:
+    shape: Tuple[int, ...]
+    low: float = -math.inf
+    high: float = math.inf

@@ -248,10 +248,15 @@ def _check_supported(env) -> None:
         # SimParams.coriolis docstring; the JAX fused step does not check
         # it and drops the bias on TPU)
         raise FusedUnsupported("SimParams.coriolis")
+    # before the build lookup: a task with hooks is usually a subclass of a
+    # task that has a build
+    hooks = [h for h, set_ in (("pre_action_rule", c.task.pre_action_rule is not None),
+                               ("custom_action_rule", c.task.custom_action_rule is not None),
+                               ("custom_post_filters", bool(c.task.custom_post_filters))) if set_]
+    if hooks:
+        raise FusedUnsupported(f"the task's custom pre-action rule, action rule or filters "
+                               f"({', '.join(hooks)}): the kernel runs the builtin ones only")
     build_for(c.task)
-    if c.task.pre_action_rule is not None or c.task.custom_action_rule is not None \
-            or c.task.custom_post_filters:
-        raise FusedUnsupported("custom pre-action rule, action rule or filters")
     for f in c.pipeline.post_action_filters:
         if f not in ("velocity_clamp", "position_clamp"):
             raise FusedUnsupported(f"unknown post-action filter {f}")

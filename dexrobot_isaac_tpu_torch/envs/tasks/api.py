@@ -97,7 +97,11 @@ class DexTask:
     failure_criteria: tuple = ()
     reward_terms: tuple = ()
 
-    # optional action hooks; the port supports none of them yet
+    # optional action hooks (envs/dexhand.py, envs/action.py), run on the
+    # unfused step; the fused step declines them:
+    # pre_action_rule(active_prev_targets, obs_dict) -> (N, 18) rule targets
     pre_action_rule = None
+    # custom_action_rule(pl, active_prev, active_rule, actions) -> (N, 18)
     custom_action_rule = None
+    # each fn(pl, active_prev, active_rule, targets) -> (N, 18)
     custom_post_filters = ()

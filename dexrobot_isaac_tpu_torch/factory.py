@@ -2,7 +2,8 @@
 
 The port's counterpart of `dexrobot_isaac_tpu/factory.py`. `make_env` runs
 on the CUDA card unless the caller passes `device="cpu"`; it raises when
-CUDA is missing rather than falling back.
+CUDA is missing rather than falling back. `env.handAsset` loads the hand
+from an MJCF file (models/mjcf.py) in place of the built-in model.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from dexrobot_isaac_tpu_torch.envs.tasks.box_reorientation import BoxReorientati
 from dexrobot_isaac_tpu_torch.envs.tasks.box_stacking import BoxStackingTask
 from dexrobot_isaac_tpu_torch.envs.tasks.in_hand_reorientation import InHandReorientationTask
 from dexrobot_isaac_tpu_torch.models.dexhand021 import build_hand_model
+from dexrobot_isaac_tpu_torch.models.mjcf import load_mjcf
 from dexrobot_isaac_tpu_torch.physics.engine import HandPhysics
 from dexrobot_isaac_tpu_torch.physics.lane_step import min_site_z
 from dexrobot_isaac_tpu_torch.physics.types import SimParams
@@ -90,11 +92,10 @@ def make_env(cfg: Dict[str, Any], seed: Optional[int] = None, device="cuda") -> 
     task_name = task_cfg.get("name", "BaseTask")
     if task_name not in TASK_REGISTRY:
         raise ValueError(f"Unknown task '{task_name}' (ported: {sorted(TASK_REGISTRY)})")
-    if env_cfg.get("handAsset"):
-        raise NotImplementedError("env.handAsset (MJCF models) is not ported yet")
     task_cfg.setdefault("hand_spawn", env_cfg.get("initialHandPos", [0.0, 0.0, 0.5]))
     task = TASK_REGISTRY[task_name](task_cfg)
-    model = build_hand_model()
+    hand_asset = env_cfg.get("handAsset")
+    model = load_mjcf(str(hand_asset)) if hand_asset else build_hand_model()
     params = task.configure_scene(build_sim_params(cfg))
     engine = HandPhysics(model=model, params=params, device=device)
     steps = int(get_by_path(cfg, "sim.physics_steps_per_control", 4))
@@ -108,6 +109,8 @@ def make_env(cfg: Dict[str, Any], seed: Optional[int] = None, device="cuda") -> 
         max_base_linear_velocity=float(task_cfg.get("max_base_linear_velocity", 0.5)),
         max_base_angular_velocity=float(task_cfg.get("max_base_angular_velocity", 1.5)),
         max_finger_joint_velocity=float(task_cfg.get("max_finger_joint_velocity", 1.0)),
+        custom_action_rule=task.custom_action_rule,
+        custom_filters=task.custom_post_filters,
     )
     obs_cfg = obs_mod.build_obs_config(
         model=model,

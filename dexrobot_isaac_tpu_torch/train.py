@@ -20,7 +20,9 @@ env-step kernel K1 on the card where the configuration has one (else the
 unfused step) and the unfused step on the CPU; on forces the fused step on
 either device (its plain version on the CPU) and raises where it is
 unsupported; off runs the unfused step. `test=true` always runs the unfused
-step. Video, the viewer, streaming, profiling and multi-device training are
+step. `train.profile=N` traces iterations 2 to 1+N with torch.profiler (CPU
+and, on the card, CUDA activities) into `<run_dir>/profile/trace.json`, a
+Chrome trace. Video, the viewer, streaming and multi-device training are
 not ported: the CLI refuses them.
 """
 
@@ -51,7 +53,7 @@ from dexrobot_isaac_tpu_torch.utils.experiment import ExperimentManager, resolve
 from dexrobot_isaac_tpu_torch.utils.logging import setup_logging
 
 _UNPORTED = {"env.videoRecord": "video recording", "env.videoStream": "video streaming",
-             "env.viewer": "the viewer", "train.profile": "profiling"}
+             "env.viewer": "the viewer"}
 
 
 @dataclasses.dataclass
@@ -99,6 +101,40 @@ def choose_fused_step(env, mode: str, device: torch.device, logger):
             raise
         logger.info(f"Fused env-step unavailable ({e}); unfused step")
         return None
+
+
+class Profiler:
+    """`train.profile=N`: a torch.profiler trace of iterations 2 to 1+N (it
+    starts after one executed iteration, so first-call costs stay out),
+    written to `<out_dir>/trace.json` when it stops."""
+
+    def __init__(self, iters: int, out_dir: str, device: torch.device, logger):
+        self.iters, self.out_dir, self.device, self.logger = iters, out_dir, device, logger
+        self.prof, self.start = None, 0
+
+    def before(self, it_prev: int) -> None:
+        """Called before each dispatch; `it_prev` iterations have run."""
+        if self.iters and self.prof is None and it_prev >= 1:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+            self.prof, self.start = profile(activities=acts), it_prev
+            self.prof.start()
+        elif self.prof is not None and it_prev >= self.start + self.iters:
+            self.stop()
+
+    def stop(self) -> None:
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.out_dir, exist_ok=True)
+        path = os.path.join(self.out_dir, "trace.json")
+        self.prof.export_chrome_trace(path)
+        self.prof, self.iters = None, 0
+        self.logger.info(f"Profiler trace written to {path}")
 
 
 def usage_text() -> str:
@@ -220,6 +256,8 @@ def run_train(s: CliRun) -> int:
                           + learner.cfg.horizon_length - 1) // learner.cfg.horizon_length + 1
     cur_cooldown_until = 0
     breakdown = None
+    profiler = Profiler(int(get_by_path(cfg, "train.profile", 0) or 0),
+                        os.path.join(s.run_dir, "profile"), learner.device, logger)
 
     for it_prev in range(0, max_iters, chunk):
         it = min(it_prev + chunk, max_iters)
@@ -227,6 +265,7 @@ def run_train(s: CliRun) -> int:
         def crossed(interval):
             return it_prev // interval != it // interval
 
+        profiler.before(it_prev)
         ppo, env_state, obs, metrics, roll_extras = train_step(ppo, env_state, obs)
         s.ppo = ppo
         if breakdown is None:
@@ -236,6 +275,7 @@ def run_train(s: CliRun) -> int:
             m = {k: float(v) for k, v in metrics.items()}
             if not (np.isfinite(m["reward_mean"]) and np.isfinite(m["kl"])):
                 # outside nn/ so checkpoint=latest never resolves to it
+                profiler.stop()
                 save_checkpoint(os.path.join(s.run_dir, "diverged.pt"), ppo,
                                 {"iteration": it, "difficulty": difficulty}, learner)
                 logger.error(f"Non-finite training metrics at iter {it} (reward_mean="
@@ -310,6 +350,7 @@ def run_train(s: CliRun) -> int:
             save_checkpoint(path, ppo, meta, learner)
             save_checkpoint(os.path.join(nn_dir, "latest.pt"), ppo, meta, learner)
             logger.info(f"Saved checkpoint: {path}")
+    profiler.stop()
     if writer:
         writer.close()
     logger.info("Training complete")

@@ -116,7 +116,8 @@ _INF = re.compile(r"^[-+]?\.(inf|Inf|INF)$")
 
 
 def parse_value(text: str) -> Any:
-    """YAML-typed scalar parsing for CLI values; `[...]`/`{...}` as JSON."""
+    """YAML-typed scalar parsing for CLI values; `[...]`/`{...}` as JSON, and
+    a flat YAML flow list of scalars (`[a, b, 1.5]`) element by element."""
     t = text.strip()
     if t in _BOOL:
         return _BOOL[t]
@@ -134,6 +135,9 @@ def parse_value(text: str) -> Any:
         try:
             return json.loads(t)
         except json.JSONDecodeError:
+            if t[0] == "[" and t[-1] == "]" and not any(c in t[1:-1] for c in "[]{}"):
+                inner = t[1:-1].strip()
+                return [parse_value(x) for x in inner.split(",")] if inner else []
             return text
     if len(t) >= 2 and t[0] == t[-1] and t[0] in "'\"":
         return t[1:-1]

@@ -133,6 +133,7 @@ def test_json_cfg_tree_has_no_extra_files():
 @pytest.mark.parametrize("text", [
     "1", "-3", "0", "1.5", "1e-3", "1.0e-3", ".5", "true", "False", "yes", "off", "null",
     "~", "abc", "tpu", "[1, 2]", ".inf", "-.inf", "'quoted'", "1_000",
+    "[object_pos, object_vel, grasp_state]", "[a, 1.5, true, null]", "[]",
 ])
 def test_cli_value_parse_matches_yaml(text):
     want = yaml.safe_load(text)

@@ -16,9 +16,11 @@ shared memory stays within the budget the design states. Every build of
 second box (held to the plain engine on a two-cube state), and K1's
 BaseTask, BoxStacking, BoxReorientation, InHandReorientation and BoxPushing
 builds (held to the plain fused step, as the BlindGrasping build is on the
-README recipe and on BlindGraspingClearance); the BlindGrasping builds keep
-their slot sizes, every shipped configuration fits its build's staging, and
-one that does not is refused when the fused step is made.
+README recipe and on BlindGraspingClearance, and with K2 on the hand
+loaded from the vendored MJCF file, whose collision spheres and finger pairs
+come in another order); the BlindGrasping builds keep their slot sizes,
+every shipped configuration fits its build's staging, and one that does not
+is refused when the fused step is made.
 """
 
 import ctypes
@@ -356,13 +358,17 @@ def test_task_build_slots_within_budget(host_libs, build, blocks):
 
 
 # ---------------------------------------------------------------- the task builds
-# K1's task builds, by test id: the configuration each is held on
+# K1's task builds, by test id: the configuration each is held on (overrides
+# separated by spaces)
+MJCF_XML = os.path.join(REPO, "dexrobot_isaac_tpu", "assets",
+                        "dexhand021_right_simplified_floating.xml")
 SCENES = {"BoxStacking": "task=BoxStacking", "BaseTask": "task=BaseTask",
           "BoxReorientation": "task=BoxReorientation",
           "InHandReorientation": "task=InHandReorientation",
           "InHandFingersOnly": "experiments=InHandFingersOnly", "BoxPushing": "task=BoxPushing",
           "BlindGraspingCurriculum": "experiments=BlindGraspingCurriculum",
-          "BlindGraspingClearance": "experiments=BlindGraspingClearance"}
+          "BlindGraspingClearance": "experiments=BlindGraspingClearance",
+          "MJCFHand": f"task=BlindGrasping env.handAsset={MJCF_XML}"}
 
 
 def _scene(task, n=16, seed=3):
@@ -370,8 +376,8 @@ def _scene(task, n=16, seed=3):
     random actions; for BoxStacking, every other env's pick cube then rests
     on the platform (cube-cube contact) and the rest keep theirs on the
     ground."""
-    env = make_env(load_config([SCENES[task], f"numEnvs={n}", "sim.substeps=2"]), seed=seed,
-                   device="cpu")
+    env = make_env(load_config(SCENES[task].split() + [f"numEnvs={n}", "sim.substeps=2"]),
+                   seed=seed, device="cpu")
     fused = env.make_fused()
     fs, _ = fused.reset()
     g = torch.Generator().manual_seed(seed + 1)
@@ -389,6 +395,36 @@ def _scene(task, n=16, seed=3):
 @pytest.fixture(scope="module", params=list(SCENES))
 def task_scene(request):
     return _scene(request.param)
+
+
+def test_control_step_source_matches_plain_on_mjcf_hand(host_libs):
+    """K2 on the hand loaded from MJCF against the plain engine, with its
+    lanes forward and in reverse bitwise equal."""
+    env, fused, fs, _ = _scene("MJCFHand")
+    c, n, lib = env.comps, fs.rows_f.shape[1], host_libs["control_step"]
+    assert not np.array_equal(c.model.sphere_pos, HandPhysics(device="cpu").model.sphere_pos)
+    st = fused.unpack(fs)
+    ph, spawn = st.physics, env._spawn.expand(n, 3)
+    ref, info, kin = env._plain_control_step(ph, st.full_dof_targets, spawn, st.dr)
+    model = _buf(ls.lane_model_array(c.engine, c.physics_steps_per_control, lib))
+    Tt = lambda x: x.float().t().contiguous()
+    ins = [Tt(ph.q), Tt(ph.qd), Tt(st.full_dof_targets), Tt(spawn), Tt(box_rows(ph, False)),
+           st.dr.rows()]
+
+    def run(reverse):
+        outs = [torch.empty(r, n) for r in (26, 26, 13, 78, 3, 26 * 19 + 70)]
+        _in_lane_order(lib, reverse, lambda: lib.control_step_host(
+            model.data_ptr(), *(x.data_ptr() for x in ins), *(o.data_ptr() for o in outs), n))
+        return outs
+
+    fwd, rev = run(False), run(True)
+    assert all(torch.equal(a, b) for a, b in zip(fwd, rev))
+    for got, want in ((fwd[0].t(), ref.q), (fwd[1].t(), ref.qd),
+                      (fwd[2].t(), box_rows(ref, False)), (fwd[4].t(), info.box_contact_force),
+                      (fwd[3].t(), info.body_contact_force.reshape(n, -1)),
+                      (ls.unpack_kin(fwd[5], 26, 10).site_pos, kin.site_pos)):
+        assert float((got - want).abs().max() / want.abs().max().clamp_min(1e-6)) <= 1e-3
+    assert bool((info.body_contact_force.abs().sum((1, 2)) > 0).any())
 
 
 def test_control_step_box2_source_matches_plain(host_libs):

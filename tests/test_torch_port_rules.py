@@ -1,11 +1,14 @@
 """Rules of the torch port (`dexrobot_isaac_tpu_torch`), checked on the CPU.
 
-- importing every module of the port loads neither jax (nor flax, optax)
-  nor the JAX package;
+- importing every module of the port, its `tools` subpackage included,
+  loads neither jax (nor flax, optax, msgpack) nor the JAX package: the
+  port reads the JAX package's `.ckpt` files with its own msgpack reader;
 - `make_env`, `HandPhysics` (also with Coriolis terms), the `convert`
   helpers and the CLI run on CUDA unless asked for the CPU, and raise
   without CUDA;
 - the fused step refuses the Coriolis configuration;
+- the tools (`diag_rollout`, `dexhand_test`) and the export CLI run on CUDA
+  unless asked for the CPU;
 - the port's samplers stay inside the configured ranges (a distribution
   check: torch and jax.random cannot give the same bits);
 - the golden-replay operand fixture (`dexrobot_isaac_tpu_torch/data/
@@ -84,8 +87,12 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'dexrobot_isaac_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'dexrobot_isaac_tpu'))\n"
         "assert not bad, bad\n"
+        "assert {'dexrobot_isaac_tpu_torch.tools.diag_rollout', "
+        "'dexrobot_isaac_tpu_torch.tools.dexhand_test', 'dexrobot_isaac_tpu_torch.rl.export', "
+        "'dexrobot_isaac_tpu_torch.models.mjcf', 'dexrobot_isaac_tpu_torch.envs.rule_based'} "
+        "<= set(sys.modules)\n"
         "print(len([k for k in sys.modules if k.startswith('dexrobot_isaac_tpu_torch')]))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -133,6 +140,16 @@ def test_coriolis_engine_and_cli_require_cuda_unless_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["task=BlindGrasping", "numEnvs=2", "maxIterations=1"])
     assert not os.path.exists(os.path.join(str(tmp_path), "runs_all"))  # refused first
+
+
+def test_tools_require_cuda_unless_cpu(monkeypatch):
+    from dexrobot_isaac_tpu_torch.tools import dexhand_test, diag_rollout
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dexhand_test.main(["task=BaseTask"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        diag_rollout.run("any.ckpt", "BaseTask")
 
 
 def test_fused_step_refuses_coriolis():

@@ -1,10 +1,11 @@
 """The port's CLI (`python -m dexrobot_isaac_tpu_torch.train`) end to end on
 the CPU: train -> checkpoints -> resume (curriculum difficulty restored) ->
 evaluate, the Coriolis path with the unfused step, the fused step's plain
-version, and the refusals. Tiny shapes: BlindGrasping at 4 envs, one physics
+version, `train.profile`, and the refusals. Tiny shapes: BlindGrasping at 4 envs, one physics
 substep per control step, a [32, 32] network, horizon 4.
 """
 
+import json
 import os
 
 import pytest
@@ -89,10 +90,22 @@ def test_fused_on_runs_the_plain_fused_step_on_cpu(runs_dir):
 
 
 @pytest.mark.parametrize("option", ["env.videoRecord=true", "env.viewer=true",
-                                    "env.videoStream=true", "train.profile=2"])
+                                    "env.videoStream=true"])
 def test_unported_options_are_refused(runs_dir, option):
     with pytest.raises(NotImplementedError):
         cli.main(BASE_ARGS + [option])
+
+
+def test_profile_writes_a_trace(runs_dir):
+    """`train.profile=1` traces iteration 2 with torch.profiler into
+    `<run_dir>/profile/trace.json` (a Chrome trace of the CPU ops here)."""
+    s = cli.build(load_config(BASE_ARGS + ["maxIterations=3", "train.profile=1"]))
+    assert cli.run_train(s) == 0
+    path = os.path.join(s.run_dir, "profile", "trace.json")
+    with open(path) as f:
+        trace = json.load(f)
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    assert any(n.startswith("aten::") for n in names)
 
 
 def test_help(capsys):

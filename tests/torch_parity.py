@@ -25,12 +25,16 @@ from dexrobot_isaac_tpu_torch import convert
 T = torch.as_tensor
 
 
-def jax_rollout(config, seed, steps, extras=()):
+def jax_rollout(config, seed, steps, extras=(), task=None):
     """The JAX env's reset and `steps` steps of uniform random actions, with
     each step's reset sample (unprojected, drawn as step_fn draws it), its
     DR sample (None without DR), the pre-step states, and the `extras` keys
-    of each step's extras."""
-    env = jax_make_env(jax_load_config(config), seed=seed)
+    of each step's extras. `task` names a registered task in place of the
+    config's (a subclass with action hooks)."""
+    cfg = jax_load_config(config)
+    if task is not None:
+        cfg["task"]["name"] = task
+    env = jax_make_env(cfg, seed=seed)
     n, task, c = env.num_envs, env.comps.task, env.comps
     actions = np.random.default_rng(seed).uniform(-1, 1, (steps, n, env.num_actions)).astype(
         np.float32)
