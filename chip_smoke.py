@@ -101,6 +101,21 @@ failing the run when it fails:
            trace exists and names K1's kernel (fused_step_kernel).
    diag    tools/diag_rollout.py from the [train] checkpoint, 4096 envs x 50
            steps on the unfused step: K2 launches 50.
+   dist    multi-process training (`dist_phase`): the CLI in subprocesses
+           (`python3 chip_smoke.py --dist-worker ...`, each cut at
+           DIST_TIMEOUT s) with torchrun's environment. (a) NCCL at world
+           size 1: BlindGrasping, 4096 envs, 2 PPO iterations on K1, and the
+           same command without the environment; the two runs' latest.pt
+           (params and optimizer state) within 1e-6 (0.0 expected). (b) two
+           ranks sharing the card over gloo (NCCL refuses two ranks on one
+           card), 2048 envs each, 2 iterations with a curriculum that
+           promotes after the first: params bitwise equal across the ranks
+           after each iteration, difficulty and consecutive successes equal,
+           the ranks' first reset draws different, K1 launches 32 per rank,
+           only rank 0 writes the checkpoint, and one minibatch update with
+           fixed data split in half across the ranks matches the
+           single-process update of the whole minibatch (KL 1e-5 relative,
+           live params atol 1e-6); global env-steps/s printed.
 9. numbers env-steps/s of the 600-step rollout and each kernel's ms per
            launch, device time with its launches queued behind a sleeping
            kernel so that the host's launch overhead stays out
@@ -145,6 +160,10 @@ ONE_SUBSTEP = ["sim.dt=0.0025", "sim.substeps=1", "sim.physics_steps_per_control
 # the golden scenario (tests/golden_scenario.py)
 GOLDEN_CONFIG = ["task=BlindGrasping", "numEnvs=8", "env.episodeLength=6", "sim.substeps=2"]
 GOLDEN_SEED = 123
+
+
+DIST_TIMEOUT = 300  # seconds for each [dist] subprocess
+DIST_ITERS = 2
 
 
 def log(*a):
@@ -377,6 +396,206 @@ def unfused_vs_plain(env, state, acts):
     rule = float((ks.active_rule_targets - ps.active_rule_targets).abs().max())
     return (max(float((ko - po).abs().max()), rule), float((kr - pr).abs().max()),
             int((kd != pd).sum()), int(pd.sum()))
+
+
+def dist_worker(out: str, backend: str, argv) -> int:
+    """A rank of [dist] (`chip_smoke.py --dist-worker <out> <backend|-> <CLI
+    args>`, torchrun's environment set by `dist_phase`): the CLI's training
+    in this process, counted, with the first reset draws, the params and
+    (consecutive successes, difficulty) after each iteration; at world size
+    2 also the split minibatch update. Writes its report to `out`."""
+    sys.path.insert(0, ROOT)
+    from dexrobot_isaac_tpu_torch import train as cli
+    from dexrobot_isaac_tpu_torch.parallel.mesh import init_distributed
+    from dexrobot_isaac_tpu_torch.utils import kernel_build
+    from dexrobot_isaac_tpu_torch.utils.config import load_config
+
+    cfg = load_config(argv)
+    if backend != "-":
+        init_distributed(cli.cli_device(cfg), backend=backend)
+    s = cli.build(cfg)
+    try:
+        env, learner, dev = s.env, s.learner, s.learner.device
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+        rep = {"draws": [], "params": [], "state": [], "rank": s.group.rank,
+               "backend": s.group.backend, "num_envs": env.num_envs,
+               "horizon": learner.cfg.horizon_length}
+        draw, iterate = env.draw_samples, learner.train_iteration
+
+        def recording_draw(n, difficulty):
+            samples = draw(n, difficulty)
+            if not rep["draws"]:
+                rep["draws"].append(samples[0].dof_pos.cpu())
+            return samples
+
+        def recording_iteration(ppo, env_state, obs):
+            res = iterate(ppo, env_state, obs)
+            rep["params"].append({k: v.cpu() for k, v in res[0].params.items()})
+            rep["state"].append((int(res[1].consecutive_successes), float(res[1].difficulty)))
+            return res
+
+        env.draw_samples, learner.train_iteration = recording_draw, recording_iteration
+        sync()
+        kernel_build.reset_launches()
+        rep["rc"] = cli.run_train(s)
+        sync()
+        rep["launches"] = dict(kernel_build.LAUNCHES)
+        rep["stats"], rep["run_dir"] = s.stats, s.run_dir
+        if s.group.world_size == 2:
+            rep["split"] = split_update(s)
+        torch.save(rep, out)
+    finally:
+        s.group.close()
+    return 0
+
+
+def split_update(s) -> dict:
+    """One minibatch update of the trained learner with fixed data (drawn
+    alike on every rank), each rank holding its half, against the update of
+    a learner without a group on the whole minibatch (on each rank): the KL's
+    relative error, the max abs error of the params where the gradient is
+    above 1e-6 ("live"), and over all params."""
+    from dexrobot_isaac_tpu_torch.rl.ppo import PPOLearner, _gaussian_log_prob
+
+    learner, ppo, group = s.learner, s.ppo, s.group
+    cfg, dev = learner.cfg, learner.device
+    m = cfg.minibatch
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rn = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    obs = ppo.obs_rms.mean + torch.sqrt(ppo.obs_rms.var) * rn(m, cfg.obs_width)
+    mu, log_std, value = learner._forward(ppo.params, ppo.obs_rms, obs)
+    action = mu + torch.exp(log_std) * rn(*mu.shape)
+    mb = [obs, action, _gaussian_log_prob(mu, log_std, action) + 0.3 * rn(m),
+          value + 0.3 * rn(m), rn(m), rn(m), mu + 0.1 * rn(*mu.shape),
+          torch.exp(log_std + 0.1 * rn(*mu.shape))]
+    carry = (ppo.params, ppo.opt_state, ppo.lr, ppo.obs_rms, ppo.value_rms,
+             torch.zeros((), device=dev))
+    rows = group.shard_slice(m)
+    (split, _, _, _, _, _), kl = learner._update_minibatch(carry, [x[rows] for x in mb])
+    alone = PPOLearner(cfg, None, seed=0, device=dev)
+    grads, _, _ = alone._grads(ppo.params, ppo.obs_rms, mb)
+    (whole, _, _, _, _, _), kl_whole = alone._update_minibatch(carry, mb)
+    live = {k: g.abs() > 1e-6 for k, g in grads.items()}
+    return {"minibatch": m, "kl": float(kl), "kl_whole": float(kl_whole),
+            "kl_rel": abs(float(kl) - float(kl_whole)) / abs(float(kl_whole)),
+            "live_err": max(float((split[k] - whole[k])[live[k]].abs().max()) for k in split),
+            "all_err": max(float((split[k] - whole[k]).abs().max()) for k in split)}
+
+
+def dist_phase(n: int, extra=()) -> dict:
+    """[dist] (see the docstring): (a) and (b), each run's ranks started
+    together as subprocesses. `extra`: more CLI args (a CPU rehearsal passes
+    device=cpu and small shapes). Returns {run: K1 launches}."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    from dexrobot_isaac_tpu_torch.parallel.mesh import free_port
+    from dexrobot_isaac_tpu_torch.rl.checkpoint import read_payload
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    base = ["task=BlindGrasping", f"numEnvs={n}", f"maxIterations={DIST_ITERS}",
+            "train.logging.noLogFile=true", "train.params.config.log_interval=1",
+            f"train.params.config.save_frequency={DIST_ITERS}"]
+
+    def run(ranks):
+        """{name: (world, rank, port or None, backend, args)} -> {name: report}."""
+        procs = {}
+        for name, (world, rank, port, backend, args) in ranks.items():
+            env = dict(os.environ, DEXHAND_RUNS_DIR=os.path.join(work, name))
+            for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+                env.pop(k, None)
+            if port is not None:  # one card: every rank on cuda:0
+                env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                           WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK="0")
+            os.makedirs(env["DEXHAND_RUNS_DIR"])
+            logf = open(os.path.join(work, name + ".log"), "w")
+            procs[name] = (subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-worker",
+                 os.path.join(work, name + ".pt"), backend, *args],
+                cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT), logf)
+        deadline = time.perf_counter() + DIST_TIMEOUT
+        failed = []
+        for name, (proc, logf) in procs.items():
+            try:
+                rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                rc = f"timed out after {DIST_TIMEOUT} s"
+            logf.close()
+            if rc != 0:
+                failed.append(name)
+                with open(logf.name) as f:
+                    log(f"[dist] {name} failed ({rc}); the end of its output:\n{f.read()[-3000:]}")
+        for proc, _ in procs.values():
+            proc.kill()
+            proc.wait()
+        check(not failed, f"[dist] runs failed: {failed}")
+        return {name: torch.load(os.path.join(work, name + ".pt"), weights_only=False)
+                for name in ranks}
+
+    def latest(name):
+        runs = os.path.join(work, name, "runs_all")
+        run_ = sorted(os.listdir(runs))
+        check(len(run_) == 1, f"[dist] {name} wrote {len(run_)} runs")
+        return os.path.join(runs, run_[0], "nn", "latest.pt")
+
+    # ---- (a) NCCL at world size 1 against the same command alone
+    t0 = time.perf_counter()
+    ra = run({"nccl": (1, 0, free_port(), "-", base + list(extra)),
+              "alone": (1, 0, None, "-", base + list(extra))})
+    pa, pb = (read_payload(latest(k)) for k in ("nccl", "alone"))
+    leaves = lambda p: [*p["params"].values(), *p["opt_state"]["mu"].values(),
+                        *p["opt_state"]["nu"].values()]
+    diff = max(float((a - b).abs().max()) for a, b in zip(leaves(pa), leaves(pb)))
+    same_count = bool(torch.equal(pa["opt_state"]["count"], pb["opt_state"]["count"]))
+    log(f"[dist] (a) world size 1 over {ra['nccl']['backend']} vs no group, {n} envs x "
+        f"{DIST_ITERS} iterations: latest.pt params and optimizer state max abs diff {diff!r} "
+        f"(expected 0.0, limit 1e-6), Adam counts equal {same_count}; K1 launches "
+        f"{ra['nccl']['launches']['fused_step']} and {ra['alone']['launches']['fused_step']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    backend = "gloo" if "device=cpu" in extra else "nccl"
+    k1_each = DIST_ITERS * ra["alone"]["horizon"]
+    check(diff <= 1e-6 and same_count and ra["nccl"]["backend"] == backend
+          and ra["alone"]["backend"] is None
+          and all(r["launches"]["fused_step"] == k1_each for r in ra.values()),
+          "[dist] (a): the run at world size 1 differs from the run without a group, or "
+          "missed K1")
+
+    # ---- (b) two ranks sharing the card over gloo, with a curriculum that
+    # promotes after the first iteration (every env times out in it)
+    t0 = time.perf_counter()
+    cur = ["task.curriculum.enabled=true", "task.curriculum.min_episodes=1",
+           "task.curriculum.promote_success_rate=0.0", "env.episodeLength=16"]
+    port = free_port()
+    rb = run({f"rank{r}": (2, r, port, "gloo", base + cur + list(extra)) for r in range(2)})
+    r0, r1 = rb["rank0"], rb["rank1"]
+    equal = [all(torch.equal(a[k], b[k]) for k in a) for a, b in zip(r0["params"], r1["params"])]
+    k1 = [r["launches"]["fused_step"] for r in (r0, r1)]
+    sps = [st["env_steps_per_s"] for st in r0["stats"]]
+    wrote0 = os.path.exists(latest("rank0"))
+    quiet1 = os.listdir(os.path.join(work, "rank1")) == [] and os.listdir(r1["run_dir"]) == []
+    sp = r0["split"]
+    log(f"[dist] (b) 2 gloo ranks on one card x {r0['num_envs']} envs = {n} global, "
+        f"{DIST_ITERS} iterations: params bitwise equal across the ranks after each iteration "
+        f"{equal}; (consecutive successes, difficulty) {r0['state']} and {r1['state']}; first "
+        f"reset draws differ {not torch.equal(r0['draws'][0], r1['draws'][0])}; K1 launches "
+        f"{k1}; rank 0 wrote latest.pt {wrote0}, rank 1 wrote nothing {quiet1}; global "
+        f"env-steps/s per iteration {[round(x) for x in sps]} (not gated); "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[dist] (b) one minibatch update of {sp['minibatch']} samples split in half across "
+        f"the ranks vs one process on the whole: KL {sp['kl']:.6e} vs {sp['kl_whole']:.6e} "
+        f"(relative {sp['kl_rel']:.2e}, tol 1e-5); live params max abs err "
+        f"{sp['live_err']:.2e} (atol 1e-6), all params {sp['all_err']:.2e}")
+    check(all(equal) and len(equal) == DIST_ITERS and r0["state"] == r1["state"]
+          and r0["state"][-1][1] > 0.0 and not torch.equal(r0["draws"][0], r1["draws"][0])
+          and wrote0 and quiet1 and r0["num_envs"] == r1["num_envs"] == n // 2
+          and k1 == [k1_each] * 2, "[dist] (b): the two ranks diverged, drew alike, missed "
+          "K1, or rank 1 wrote")
+    check(sp["kl_rel"] <= 1e-5 and sp["live_err"] <= 1e-6,
+          "[dist] (b): the split minibatch update misses the single-process update")
+    shutil.rmtree(work)
+    return {"a_nccl": ra["nccl"]["launches"]["fused_step"],
+            "a_alone": ra["alone"]["launches"]["fused_step"], "b_rank0": k1[0], "b_rank1": k1[1]}
 
 
 def surface_phases(dev, n, gen, train_run, tr, ckpt, horizon):
@@ -949,6 +1168,9 @@ def main() -> int:
     # ---------------------------------------------------------------- user surface
     surface = surface_phases(dev, N_ENVS, gen, train_run, tr, ckpt, horizon)
 
+    # ---------------------------------------------------------------- dist
+    dist_launches = dist_phase(N_ENVS)
+
     # ---------------------------------------------------------------- 9 numbers
     # kernel timings on the phase-3/4/5 inputs (launches here are not counted).
     # K1 writes its state rows in place, so each timed call first restores
@@ -1105,7 +1327,8 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": launches[name], "max_abs_err": err, "ms": ms,
                         "paced_ms": paced, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-                        "library_ms": lib_ms, "timing": timing})
+                        "library_ms": lib_ms, "timing": timing,
+                        **({"launches_dist": dist_launches} if name == "fused_step" else {})})
         log(f"[numbers] {name}: {ms:.5f} ms/launch (paced by the host {paced:.5f}), plain "
             f"{pms:.4f} ms, bound {bms:.5f} ms ({by}), library "
             f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, launches {launches[name]}")
@@ -1121,4 +1344,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(sys.argv[2], sys.argv[3], sys.argv[4:]))
     sys.exit(main())

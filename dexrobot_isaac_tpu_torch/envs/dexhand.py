@@ -28,6 +28,17 @@ rule starts from (the segments the policy does not control keep it). Its
 `custom_action_rule` and `custom_post_filters` sit in the action pipeline
 (`envs/action.py`). The fused step declines all three.
 
+Ranks (`group`, parallel/mesh.py): the env holds its rank's shard of the
+envs (`num_envs` is the local count, `parallel/distributed.py`
+`make_sharded_env`) and draws from its own generator, seeded
+`group.rank_seed(seed)` (JAX folds the shard index into its reset and DR
+keys, `envs/dexhand.py:222-225`, `:443-446`). The consecutive-successes
+counter counts a success on any rank: one int32 all-reduced (max) per step,
+on the device (JAX `pmax`, `:301-306`). JAX also averages its scalar extras
+over the shards (`:421-427`): those are the termination rates, which the
+port's termination does not emit; its one scalar extra,
+`consecutive_successes`, is global by the max.
+
 The stateful wrapper carries the JAX env's user API: `reset`/`step`,
 `observation_space`/`action_space`, `set_difficulty`, `get_obs_slice` and
 the `get_obs_index_for_*` lookups, `toggle_random_actions`, `seed` and
@@ -51,6 +62,7 @@ from dexrobot_isaac_tpu_torch.envs import termination as term_mod
 from dexrobot_isaac_tpu_torch.envs.tasks.api import DexTask, TaskReset
 from dexrobot_isaac_tpu_torch.envs.types import EnvState
 from dexrobot_isaac_tpu_torch.models.dexhand021 import HandModel
+from dexrobot_isaac_tpu_torch.parallel.mesh import Group, single_process
 from dexrobot_isaac_tpu_torch.physics.engine import HandPhysics
 from dexrobot_isaac_tpu_torch.physics.types import DRSample, PhysicsState
 
@@ -89,14 +101,15 @@ def _where(m, a, b):
 
 
 class DexHandEnv:
-    def __init__(self, comps: EnvComponents, seed: int = 42):
+    def __init__(self, comps: EnvComponents, seed: int = 42, group: Optional[Group] = None):
         c = self.comps = comps
         self.device = comps.device
+        self.group = group if group is not None else single_process(self.device)
         self.num_envs = comps.num_envs
         self.num_actions = comps.num_actions
         self.control_dt = comps.control_dt
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.generator.manual_seed(self.group.rank_seed(seed))
         self._spawn = torch.as_tensor(np.asarray(comps.spawn_pos, np.float32), device=self.device)
         self._default_dof = torch.as_tensor(
             np.asarray(comps.default_dof_pos, np.float32), device=self.device)
@@ -126,6 +139,10 @@ class DexHandEnv:
                                        difficulty=difficulty, project=False)
         dr = DRSample.sample(self.generator, n, c.dr_ranges) if c.dr_ranges else None
         return reset_vals, dr
+
+    def any_rank(self, mask: torch.Tensor) -> torch.Tensor:
+        """Whether `mask` holds anywhere on any rank: a 0-d bool tensor."""
+        return self.group.all_reduce_max(mask.any().to(torch.int32)) > 0
 
     def _check_reset_vals(self, reset_vals: TaskReset) -> None:
         """A two-box scene needs the second box's reset pose from the task."""
@@ -213,7 +230,7 @@ class DexHandEnv:
         rew = total + term_reward
         components.update(term_comps)
         consecutive = torch.where(
-            term_info["success"].any(),
+            self.any_rank(term_info["success"]),
             torch.clamp(state.consecutive_successes + 1,
                         max=c.term_cfg.max_consecutive_successes),
             torch.zeros_like(state.consecutive_successes))
@@ -380,7 +397,7 @@ class DexHandEnv:
 
     def seed(self, seed: int) -> None:
         """Reseed the env's generator (resets and DR draws, random actions)."""
-        self.generator.manual_seed(seed)
+        self.generator.manual_seed(self.group.rank_seed(seed))
 
     def set_difficulty(self, value: float) -> None:
         """The curriculum difficulty of the wrapper's own state (a loop that

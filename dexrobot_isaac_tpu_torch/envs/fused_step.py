@@ -721,7 +721,7 @@ def build_fused_step(env, lib: ctypes.CDLL | None = None):
             obs = obs.clamp(-c.clip_observations, c.clip_observations)
         done, succ = msk_T[0] != 0, msk_T[1] != 0
         consecutive = torch.where(
-            succ.any(), torch.clamp(fs.consecutive_successes + 1,
+            env.any_rank(succ), torch.clamp(fs.consecutive_successes + 1,
                                     max=c.term_cfg.max_consecutive_successes),
             torch.zeros_like(fs.consecutive_successes))
         new = FusedEnvState(fs.rows_f, fs.rows_i, rows_c, consecutive, fs.difficulty)

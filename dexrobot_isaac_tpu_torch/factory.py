@@ -29,6 +29,7 @@ from dexrobot_isaac_tpu_torch.envs.tasks.box_stacking import BoxStackingTask
 from dexrobot_isaac_tpu_torch.envs.tasks.in_hand_reorientation import InHandReorientationTask
 from dexrobot_isaac_tpu_torch.models.dexhand021 import build_hand_model
 from dexrobot_isaac_tpu_torch.models.mjcf import load_mjcf
+from dexrobot_isaac_tpu_torch.parallel.mesh import Group, single_process
 from dexrobot_isaac_tpu_torch.physics.engine import HandPhysics
 from dexrobot_isaac_tpu_torch.physics.lane_step import min_site_z
 from dexrobot_isaac_tpu_torch.physics.types import SimParams
@@ -84,7 +85,10 @@ def _reject_nonzero_restitution(node: Any, path: str = "task") -> None:
                 _reject_nonzero_restitution(v, f"{path}.{k}")
 
 
-def make_env(cfg: Dict[str, Any], seed: Optional[int] = None, device="cuda") -> DexHandEnv:
+def make_env(cfg: Dict[str, Any], seed: Optional[int] = None, device="cuda",
+             group: Optional[Group] = None) -> DexHandEnv:
+    """The env of a composed config; with `group`, this rank's shard of
+    `numEnvs` (which must divide over the ranks) and its generator."""
     device = resolve_device(device)
     task_cfg = dict(cfg.get("task", {}))
     _reject_nonzero_restitution(task_cfg)
@@ -143,8 +147,9 @@ def make_env(cfg: Dict[str, Any], seed: Optional[int] = None, device="cuda") -> 
         max_consecutive_successes=int(task_cfg.get("max_consecutive_successes", 50)),
     )
     spawn = np.asarray(env_cfg.get("initialHandPos", [0.0, 0.0, 0.5]), dtype=np.float32)
+    shard = (group or single_process(device)).shard_slice(int(env_cfg.get("numEnvs", 1024)))
     comps = EnvComponents(
-        num_envs=int(env_cfg.get("numEnvs", 1024)),
+        num_envs=shard.stop - shard.start,
         model=model, engine=engine, pipeline=pipeline, obs_cfg=obs_cfg,
         reward_cfg=reward_cfg, term_cfg=term_cfg, task=task,
         physics_steps_per_control=steps, control_dt=control_dt,
@@ -171,4 +176,4 @@ def make_env(cfg: Dict[str, Any], seed: Optional[int] = None, device="cuda") -> 
             return min_site_z(engine, dof_pos, spawn_t, tips)
 
         task._min_tip_z_fn = _min_tip_z
-    return DexHandEnv(comps, seed=seed)
+    return DexHandEnv(comps, seed=seed, group=group)

@@ -84,8 +84,9 @@ def load_checkpoint(path: str, ppo_state: PPOState,
                     learner: Optional[PPOLearner] = None) -> PPOState:
     """The saved state on `ppo_state`'s device (tensor by tensor, raising on
     a missing or mismatched parameter); with `learner`, its generator
-    continues from the saved state. A JAX package `.ckpt` keeps
-    `ppo_state`'s optimizer state and the learner's generator."""
+    continues from the saved state (rank 0's; `set_generator_state`). A JAX
+    package `.ckpt` keeps `ppo_state`'s optimizer state and the learner's
+    generator."""
     data = read_payload(path)
     dev = ppo_state.lr.device
     on = lambda d: {k: v.to(dev) for k, v in d.items()}
@@ -98,7 +99,7 @@ def load_checkpoint(path: str, ppo_state: PPOState,
             raise ValueError(f"{path}: {k} has shape {tuple(v.shape)}, the network "
                              f"{tuple(ppo_state.params[k].shape)}")
     if learner is not None and data.get("generator") is not None:
-        learner.generator.set_state(data["generator"])
+        learner.set_generator_state(data["generator"], int(data["epoch"]))
     o = data.get("opt_state")
     rms = lambda d, ref: RunningMeanStd(**{k: like(v, getattr(ref, k)) for k, v in d.items()})
     return dataclasses.replace(

@@ -13,7 +13,10 @@ plus `training/termination_rates/*` and `training/episode_length`.
 - `DeviceBreakdown`: per-env episode accumulators and per-(termination
   type, component) window totals kept on the device; each iteration's
   extras fold in without a host transfer, and the host fetches only the
-  window totals (a few hundred scalars) per logging window.
+  window totals (a few hundred scalars) per logging window. With a process
+  group the window totals are summed over the ranks before the host reads
+  them, so every rank sees the global breakdown (JAX builds it from the
+  global extras, train.py:404-454) and the curriculum promotes alike.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from dexrobot_isaac_tpu_torch.parallel.mesh import Group
 
 _TYPES = ("success", "failure", "timeout")
 
@@ -184,12 +189,15 @@ class DeviceBreakdown:
 
     state: Dict[str, torch.Tensor]
     comp_names: tuple
+    group: Optional[Group] = None   # sums the window totals over its ranks
 
     @classmethod
-    def create(cls, roll_extras, comp_names=None) -> "DeviceBreakdown":
+    def create(cls, roll_extras, comp_names=None, group: Optional[Group] = None
+               ) -> "DeviceBreakdown":
         """`roll_extras` carries either the reward-component dict or the
         packed `reward_components_packed` (T, N, C) (the learner's slim
-        extras); in the packed case `comp_names` gives the packing order."""
+        extras); in the packed case `comp_names` gives the packing order.
+        With `group`, the fetched window is the sum over its ranks."""
         if "reward_components_packed" in roll_extras:
             packed = roll_extras["reward_components_packed"]
             if comp_names is None:
@@ -213,7 +221,7 @@ class DeviceBreakdown:
             # spawn_difficulty (train.py promote_strict); zero otherwise
             "ep_count_strict": z(2, dt=torch.int32),
         }
-        return cls(state=state, comp_names=comp_names)
+        return cls(state=state, comp_names=comp_names, group=group)
 
     def update(self, extras) -> None:
         st = self.state
@@ -243,11 +251,14 @@ class DeviceBreakdown:
                       "step_sum": step_sum, "comp_sum": comp_sum, "ep_count_strict": ep_strict}
 
     def fetch_and_reset(self, global_step: int = 0) -> Dict[str, Any]:
-        """Fetch the window totals to the host and zero them (the per-env
-        episode accumulators carry over). `global_step` is stamped into the
-        summary."""
+        """Fetch the window totals, summed over the group's ranks, to the host
+        and zero them (the per-env episode accumulators carry over).
+        `global_step` is stamped into the summary."""
         keys = ("ep_count", "step_sum", "comp_sum", "ep_count_strict")
-        host = {k: self.state[k].cpu().numpy() for k in keys}
+        window = {k: self.state[k] for k in keys}
+        if self.group is not None:
+            window = self.group.all_reduce_sum(window)
+        host = {k: v.cpu().numpy() for k, v in window.items()}
         host["global_step"] = int(global_step)
         comp_sum = host["comp_sum"]
         host["comp_sum"] = {k: comp_sum[:, i] for i, k in enumerate(self.comp_names)}

@@ -21,6 +21,20 @@ What differs from the JAX learner, and why:
   by max_norm / ||g|| otherwise (no 1e-6 in the norm, unlike
   `torch.nn.utils.clip_grad_norm_`), then Adam with b1 0.9, b2 0.999 and
   eps 1e-8 outside the square root, at the carried LR.
+
+Across ranks (`group`, parallel/mesh.py; JAX `axis_name` under shard_map):
+each rank rolls out its shard of the envs and updates its local slice of
+every global minibatch (`cfg.num_envs` is the global count, so the
+minibatch count is global), and the learner all-reduces where the JAX
+learner's `_pmean`/`psum` stand: the gradients with the minibatch's KL in
+one flat all-reduce before the clip and Adam (JAX :407, :416), the
+advantage mean and variance (:473-474), the running stats' batch moments
+(:634-642; the count summed) and the iteration metrics (:584-588). So the
+parameters, optimizer state, running stats and LR stay bitwise equal on
+every rank, and the KL gate and the LR schedule decide alike. The weights
+are drawn from `seed` alone; the rollout noise and the shuffles from the
+rank's own generator (JAX folds the shard index into `roll_key` and
+`perm_key`, :434-436), whose seed on rank 0 is `seed` itself.
 """
 
 from __future__ import annotations
@@ -33,12 +47,14 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from dexrobot_isaac_tpu_torch.parallel.mesh import Group, single_process
 from dexrobot_isaac_tpu_torch.rl.networks import ActorCritic
 from dexrobot_isaac_tpu_torch.rl.running_stats import RunningMeanStd
 from dexrobot_isaac_tpu_torch.utils.config import get_by_path
 from dexrobot_isaac_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_KL = "policy_kl"  # the KL's key beside the gradients in one all-reduce
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,13 +152,16 @@ def _policy_kl(mu, sigma, mu_old, sigma_old):
 
 
 class PPOLearner:
-    def __init__(self, cfg: PPOConfig, env_step: Callable, seed: int = 42, device="cuda"):
+    def __init__(self, cfg: PPOConfig, env_step: Callable, seed: int = 42, device="cuda",
+                 group: Optional[Group] = None):
         """env_step: (env_state, actions) -> (env_state, obs, rew, done,
         extras). The learner's tensors and generator live on `device`: the
-        card unless the caller passes "cpu"."""
+        card unless the caller passes "cpu". `group`: the ranks whose
+        envs this learner trains with (none: a single process)."""
         self.cfg = cfg
         self.env_step = env_step
         self.device = resolve_device(device)
+        self.group = group if group is not None else single_process(self.device)
         self._seed = seed
         # the weights are drawn on the CPU, so a seed gives the same
         # network on every device
@@ -151,7 +170,7 @@ class PPOLearner:
             _DTYPES[cfg.network_dtype], generator=torch.Generator().manual_seed(seed),
         ).to(self.device)
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self.generator.manual_seed(self.group.rank_seed(seed))
         self.comp_names: Optional[Tuple[str, ...]] = None
         self._marks = None
         self._static_perm_np = None
@@ -182,6 +201,24 @@ class PPOLearner:
             lr=torch.tensor(cfg.learning_rate, dtype=torch.float32, device=self.device),
             epoch=torch.zeros((), dtype=torch.int32, device=self.device),
         )
+
+    def broadcast_state(self, state: PPOState) -> PPOState:
+        """Overwrite `state` with rank 0's, in place (after init or a
+        checkpoint load: every rank then starts from the same state)."""
+        opt = state.opt_state
+        self.group.broadcast_([*state.params.values(), opt.count, *opt.mu.values(),
+                               *opt.nu.values(), *state.obs_rms.to_dict().values(),
+                               *state.value_rms.to_dict().values(), state.lr, state.epoch])
+        return state
+
+    def set_generator_state(self, saved: torch.Tensor, epoch: int) -> None:
+        """Continue a checkpoint's generator. A checkpoint holds rank 0's; every
+        other rank reseeds from its rank and the saved epoch, so the ranks'
+        draws stay apart."""
+        if self.group.is_main:
+            self.generator.set_state(saved)
+        else:
+            self.generator.manual_seed(self.group.rank_seed(self._seed + epoch))
 
     def apply(self, params: Dict[str, torch.Tensor], x: torch.Tensor):
         """The network with `params` (flax's `apply`)."""
@@ -315,17 +352,24 @@ class PPOLearner:
                for k in params}
         return new, AdamState(count, mu, nu)
 
+    def _global_grads(self, params, obs_rms: RunningMeanStd, mb):
+        """(grads, kl) of the minibatch at `params`, each the mean over the
+        ranks (JAX :407, :416), in one all-reduce: the KL is of the
+        pre-update params, so it is ready with the gradients."""
+        grads, mu, sigma = self._grads(params, obs_rms, mb)
+        red = self.group.all_reduce_mean({**grads, _KL: _policy_kl(mu, sigma, mb[6], mb[7])})
+        return {k: red[k] for k in grads}, red[_KL]
+
     @torch.no_grad()
     def _update_minibatch(self, carry, mb):
         """carry = (params, opt_state, lr, obs_rms, value_rms, kl_sum) ->
         (carry, kl), as the JAX scan body."""
         params, opt_state, lr, obs_rms, value_rms, kl_sum = carry
         cfg = self.cfg
-        grads, mu, sigma = self._grads(params, obs_rms, mb)
+        grads, kl = self._global_grads(params, obs_rms, mb)
         new_params, new_opt = self._apply_updates(params, opt_state, grads, lr)
-        # the KL of the pre-update params: past the gate another step can
-        # only push further out, so the old params and optimizer state stay
-        kl = _policy_kl(mu, sigma, mb[6], mb[7])
+        # past the gate another step can only push further out, so the old
+        # params and optimizer state stay
         if cfg.kl_skip_factor is not None:
             skip = kl > cfg.kl_skip_factor * cfg.kl_threshold
             keep = lambda new, old: {k: torch.where(skip, old[k], new[k]) for k in new}
@@ -372,9 +416,7 @@ class PPOLearner:
         returns_norm = (value_rms.normalize(returns, clip=math.inf) if cfg.normalize_value
                         else returns)
         if cfg.normalize_advantage:
-            adv_mean = advantages.mean()
-            adv_var = ((advantages - adv_mean) ** 2).mean()
-            advantages = (advantages - adv_mean) / (torch.sqrt(adv_var) + 1e-8)
+            advantages = self._normalize_advantages(advantages)
 
         flat = lambda x: x.reshape((-1,) + x.shape[2:])
         data = [flat(traj.obs), flat(traj.action), flat(traj.log_prob), flat(traj.value),
@@ -405,12 +447,13 @@ class PPOLearner:
         self._marks = (m0, m1, self._mark())
 
         new_ppo = PPOState(params, opt_state, new_obs_rms, new_value_rms, lr, ppo.epoch + 1)
-        metrics = {
-            "kl": kl, "lr": lr, "reward_mean": traj.reward.mean(),
-            "value_mean": traj.value.mean(),
-            "advantage_std": torch.sqrt((advantages ** 2).mean()),
-            "episode_done_frac": traj.done.float().mean(),
-        }
+        g = self.group.all_reduce_mean({
+            "reward_mean": traj.reward.mean(), "value_mean": traj.value.mean(),
+            "advantage_sq": (advantages ** 2).mean(),
+            "episode_done_frac": traj.done.float().mean()})
+        metrics = {"kl": kl, "lr": lr, "reward_mean": g["reward_mean"],
+                   "value_mean": g["value_mean"], "advantage_std": torch.sqrt(g["advantage_sq"]),
+                   "episode_done_frac": g["episode_done_frac"]}
         return new_ppo, env_state, obs, metrics, roll_extras
 
     def make_chunked_train_step(self, chunk: int):
@@ -472,20 +515,29 @@ class PPOLearner:
         lr = torch.where(kl < 0.5 * cfg.kl_threshold, lr * 1.5, lr)
         return lr.clamp(cfg.lr_floor, cfg.lr_ceiling)
 
-    @staticmethod
-    def _batch_moments(batch):
-        mean = batch.mean(dim=0)
-        var = ((batch - mean) ** 2).mean(dim=0)
-        return mean, var, torch.tensor(float(batch.shape[0]), device=batch.device)
+    def _batch_moments(self, batch):
+        """The batch's mean and variance (the mean over the ranks of each
+        rank's, about the global mean) and its global count (JAX :634-642)."""
+        mean = self.group.all_reduce_mean(batch.mean(dim=0))
+        var = self.group.all_reduce_mean(((batch - mean) ** 2).mean(dim=0))
+        count = torch.tensor(float(batch.shape[0]), device=batch.device)
+        return mean, var, self.group.all_reduce_sum(count)
+
+    def _normalize_advantages(self, adv):
+        """Advantages over their global mean and std (JAX :472-475)."""
+        mean = self.group.all_reduce_mean(adv.mean())
+        var = self.group.all_reduce_mean(((adv - mean) ** 2).mean())
+        return (adv - mean) / (torch.sqrt(var) + 1e-8)
 
 
 def ppo_config_from(cfg: Dict[str, Any], env) -> PPOConfig:
-    """The PPOConfig of a composed config dict (train.params) for `env`."""
+    """The PPOConfig of a composed config dict (train.params) for `env`
+    (`num_envs` over all ranks)."""
     tp = get_by_path(cfg, "train.params.config", {}) or {}
     opt = lambda k: None if tp.get(k) is None else float(tp[k])
     return PPOConfig(
         num_actions=env.num_actions, num_obs=env.num_obs, num_states=env.num_states,
-        num_envs=env.num_envs,
+        num_envs=env.num_envs * env.group.world_size,
         horizon_length=int(tp.get("horizon_length", 16)),
         minibatch_size=tp.get("minibatch_size"),
         mini_epochs=int(tp.get("mini_epochs", 4)),

@@ -22,8 +22,21 @@ either device (its plain version on the CPU) and raises where it is
 unsupported; off runs the unfused step. `test=true` always runs the unfused
 step. `train.profile=N` traces iterations 2 to 1+N with torch.profiler (CPU
 and, on the card, CUDA activities) into `<run_dir>/profile/trace.json`, a
-Chrome trace. Video, the viewer, streaming and multi-device training are
-not ported: the CLI refuses them.
+Chrome trace. Video, the viewer and streaming are not ported: the CLI
+refuses them.
+
+Training on several cards takes one process per card:
+
+    torchrun --nproc_per_node=N -m dexrobot_isaac_tpu_torch.train task=BlindGrasping numEnvs=8192
+
+(a manual launch sets MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK and
+LOCAL_RANK in each process itself). Rank r trains on `cuda:LOCAL_RANK` with
+its contiguous share of `numEnvs`, which must divide by the number of
+ranks, and the learner's collectives run over NCCL (gloo under
+`device=cpu`). Rank 0 alone writes the run directory, the log file,
+TensorBoard and the checkpoints. Evaluation (`test=true`) is
+single-process: it refuses a launch with WORLD_SIZE > 1. A plain launch on a
+host with several cards trains on one and says so.
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
+import tempfile
 import time
 from typing import Any, Dict, List, Optional
 
@@ -38,7 +52,8 @@ import numpy as np
 import torch
 
 from dexrobot_isaac_tpu_torch.envs.fused_step import FusedUnsupported
-from dexrobot_isaac_tpu_torch.factory import make_env
+from dexrobot_isaac_tpu_torch.parallel.distributed import make_sharded_env
+from dexrobot_isaac_tpu_torch.parallel.mesh import Group, init_distributed, launched_world_size
 from dexrobot_isaac_tpu_torch.rl.checkpoint import (
     HotReloadMonitor,
     load_checkpoint,
@@ -65,12 +80,14 @@ class CliRun:
     fused: Any                 # the fused step (envs/fused_step.py) or None
     learner: PPOLearner
     ppo: Any
-    run_dir: str
+    run_dir: str               # rank 0's run; a scratch dir on another rank
     logger: Any
     test_mode: bool
+    group: Group
     resume_meta: Optional[Dict[str, Any]] = None
-    # one entry per logged train iteration: env-steps/s of the window, the
-    # last iteration's rollout and update seconds, its KL and mean reward
+    # one entry per logged train iteration: env-steps/s of the window (over
+    # all ranks), the last iteration's rollout and update seconds, its KL,
+    # mean reward and the curriculum difficulty after it
     stats: List[Dict[str, float]] = dataclasses.field(default_factory=list)
 
 
@@ -147,35 +164,53 @@ def build(cfg: Dict[str, Any]) -> CliRun:
     for key, what in _UNPORTED.items():
         if get_by_path(cfg, key):
             raise NotImplementedError(f"{key}: {what} is not ported to the torch CLI yet")
-    device = cli_device(cfg)
     test_mode = bool(get_by_path(cfg, "train.test", False))
+    if test_mode and launched_world_size() > 1:
+        raise RuntimeError("test=true is single-process: launch evaluation without torchrun "
+                           f"(WORLD_SIZE={launched_world_size()})")
+    group = init_distributed(cli_device(cfg))
+    device = group.device
     mode = "test" if test_mode else "train"
     task_name = get_by_path(cfg, "task.name", "BaseTask")
     runs_base = os.environ.get("DEXHAND_RUNS_DIR", ".")
-    exp = ExperimentManager(
-        base_dir=runs_base,
-        max_train_runs=int(get_by_path(cfg, "train.experiment.maxTrainRuns", 10)),
-        max_test_runs=int(get_by_path(cfg, "train.experiment.maxTestRuns", 10)),
-    )
-    run_dir = exp.create_run(task_name, mode,
-                             experiment_name=get_by_path(cfg, "train.logging.experimentName"),
-                             cfg=cfg)
-    log_file = (None if get_by_path(cfg, "train.logging.noLogFile", False)
+    # the run directory, log file, TensorBoard and checkpoints are rank 0's;
+    # another rank works in a scratch dir and writes nothing
+    if group.is_main:
+        exp = ExperimentManager(
+            base_dir=runs_base,
+            max_train_runs=int(get_by_path(cfg, "train.experiment.maxTrainRuns", 10)),
+            max_test_runs=int(get_by_path(cfg, "train.experiment.maxTestRuns", 10)),
+        )
+        run_dir = exp.create_run(task_name, mode,
+                                 experiment_name=get_by_path(cfg, "train.logging.experimentName"),
+                                 cfg=cfg)
+    else:
+        run_dir = tempfile.mkdtemp(prefix=f"dexhand_rank{group.rank}_")
+    log_file = (None if get_by_path(cfg, "train.logging.noLogFile", False) or not group.is_main
                 else os.path.join(run_dir, f"{mode}.log"))
     logger = setup_logging(get_by_path(cfg, "train.logging.logLevel", "info"), log_file)
     logger.info(f"Run directory: {run_dir}")
     logger.info(f"Task: {task_name} | mode: {mode} | device: "
                 + (torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"))
+    if group.active:
+        logger.info(f"Distributed: rank {group.rank} of {group.world_size} ({group.backend}, "
+                    f"{device})")
+    elif device.type == "cuda" and torch.cuda.device_count() > 1:
+        n = torch.cuda.device_count()
+        logger.info(f"{n} CUDA cards visible; this run trains on one. Train on all {n} with "
+                    f"torchrun --nproc_per_node={n} -m dexrobot_isaac_tpu_torch.train ...")
 
     seed = int(get_by_path(cfg, "train.seed", 42))
-    env = make_env(cfg, seed=seed, device=device)
-    logger.info(f"Env: {env.num_envs} envs, obs {env.num_obs}"
+    env = make_sharded_env(cfg, group, seed=seed)
+    logger.info(f"Env: {env.num_envs} envs"
+                + (f" of {env.num_envs * group.world_size} on this rank" if group.active else "")
+                + f", obs {env.num_obs}"
                 + (f" (+{env.num_states} critic states)" if env.num_states else "")
                 + f", actions {env.num_actions}, control_dt {env.control_dt:.3f}s")
     mode_f = _fused_mode(get_by_path(cfg, "train.params.config.fused", "auto"))
     fused = None if test_mode else choose_fused_step(env, mode_f, device, logger)
     learner = PPOLearner(ppo_config_from(cfg, env), fused.step_fn if fused else env.step_fn,
-                         seed=seed, device=device)
+                         seed=seed, device=device, group=group)
     if fused is not None:
         learner.comp_names = fused.comp_names
         logger.info("Fused env-step kernel enabled")
@@ -187,7 +222,8 @@ def build(cfg: Dict[str, Any]) -> CliRun:
         logger.info(f"Loading checkpoint: {path}")
         ppo = load_checkpoint(path, ppo, learner)
         resume_meta = load_checkpoint_meta(path)
-    return CliRun(cfg, env, fused, learner, ppo, run_dir, logger, test_mode, resume_meta)
+    ppo = learner.broadcast_state(ppo)
+    return CliRun(cfg, env, fused, learner, ppo, run_dir, logger, test_mode, group, resume_meta)
 
 
 def main(argv=None) -> int:
@@ -196,18 +232,23 @@ def main(argv=None) -> int:
         print(usage_text())
         return 0
     s = build(load_config(argv))
-    return run_test(s) if s.test_mode else run_train(s)
+    try:
+        return run_test(s) if s.test_mode else run_train(s)
+    finally:
+        s.group.close()
 
 
 def run_train(s: CliRun) -> int:
     cfg, env, learner, logger = s.cfg, s.env, s.learner, s.logger
-    ppo = s.ppo
-    try:
-        from torch.utils.tensorboard import SummaryWriter
-    except ImportError:
-        writer = None
-    else:
-        writer = SummaryWriter(os.path.join(s.run_dir, "tb"))
+    ppo, main_rank = s.ppo, s.group.is_main
+    writer = None
+    if main_rank:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            pass
+        else:
+            writer = SummaryWriter(os.path.join(s.run_dir, "tb"))
     observer = RewardComponentObserver(
         writer, int(get_by_path(cfg, "train.logging.rewardLogInterval", 100)))
     max_iters = int(get_by_path(cfg, "train.maxIterations", 10000))
@@ -226,7 +267,7 @@ def run_train(s: CliRun) -> int:
 
     best_reward = -np.inf
     window_t, window_it = time.time(), 0
-    steps_per_iter = learner.cfg.horizon_length * env.num_envs
+    steps_per_iter = learner.cfg.batch_size  # over all ranks
 
     # curriculum controller: promote the reset difficulty when the windowed
     # success rate clears the threshold (a host-side replacement of the
@@ -256,7 +297,7 @@ def run_train(s: CliRun) -> int:
                           + learner.cfg.horizon_length - 1) // learner.cfg.horizon_length + 1
     cur_cooldown_until = 0
     breakdown = None
-    profiler = Profiler(int(get_by_path(cfg, "train.profile", 0) or 0),
+    profiler = Profiler(int(get_by_path(cfg, "train.profile", 0) or 0) if main_rank else 0,
                         os.path.join(s.run_dir, "profile"), learner.device, logger)
 
     for it_prev in range(0, max_iters, chunk):
@@ -269,15 +310,17 @@ def run_train(s: CliRun) -> int:
         ppo, env_state, obs, metrics, roll_extras = train_step(ppo, env_state, obs)
         s.ppo = ppo
         if breakdown is None:
-            breakdown = DeviceBreakdown.create(roll_extras, comp_names=learner.comp_names)
+            breakdown = DeviceBreakdown.create(roll_extras, comp_names=learner.comp_names,
+                                               group=learner.group)
         breakdown.update(roll_extras)
         if crossed(log_interval) or it == max_iters:
             m = {k: float(v) for k, v in metrics.items()}
             if not (np.isfinite(m["reward_mean"]) and np.isfinite(m["kl"])):
                 # outside nn/ so checkpoint=latest never resolves to it
                 profiler.stop()
-                save_checkpoint(os.path.join(s.run_dir, "diverged.pt"), ppo,
-                                {"iteration": it, "difficulty": difficulty}, learner)
+                if main_rank:
+                    save_checkpoint(os.path.join(s.run_dir, "diverged.pt"), ppo,
+                                    {"iteration": it, "difficulty": difficulty}, learner)
                 logger.error(f"Non-finite training metrics at iter {it} (reward_mean="
                              f"{m['reward_mean']}, kl={m['kl']}): aborting. Resume from the "
                              "last finite checkpoint with a lower "
@@ -287,9 +330,9 @@ def run_train(s: CliRun) -> int:
             sps = (it - window_it) * steps_per_iter / max(now - window_t, 1e-9)
             window_t, window_it = now, it
             rollout_s, update_s = learner.iteration_seconds()
-            s.stats.append({"iteration": it, "env_steps_per_s": sps, "rollout_s": rollout_s,
-                            "update_s": update_s, "kl": m["kl"],
-                            "reward_mean": m["reward_mean"]})
+            stats = {"iteration": it, "env_steps_per_s": sps, "rollout_s": rollout_s,
+                     "update_s": update_s, "kl": m["kl"], "reward_mean": m["reward_mean"]}
+            s.stats.append(stats)
             logger.info(f"iter {it}/{max_iters} reward {m['reward_mean']:+.3f} "
                         f"kl {m['kl']:.4f} lr {m['lr']:.2e} | {sps:,.0f} env-steps/s | "
                         f"rollout {rollout_s * 1e3:.1f} ms update {update_s * 1e3:.1f} ms"
@@ -337,14 +380,16 @@ def run_train(s: CliRun) -> int:
                                     f"episodes -> difficulty {difficulty:.2f}")
                         cur_cooldown_until = it + cur_cooldown_iters
                     cur_succ = cur_done = 0
+            stats["difficulty"] = difficulty
 
             if m["reward_mean"] > best_reward and it >= int(
                     get_by_path(cfg, "train.params.config.save_best_after", 1)):
                 best_reward = m["reward_mean"]
-                save_checkpoint(os.path.join(nn_dir, f"{task_name}_best.pt"), ppo,
-                                {"iteration": it, "reward": best_reward,
-                                 "difficulty": difficulty}, learner)
-        if crossed(save_freq) or it == max_iters:
+                if main_rank:
+                    save_checkpoint(os.path.join(nn_dir, f"{task_name}_best.pt"), ppo,
+                                    {"iteration": it, "reward": best_reward,
+                                     "difficulty": difficulty}, learner)
+        if main_rank and (crossed(save_freq) or it == max_iters):
             path = os.path.join(nn_dir, f"{task_name}_ep{it}.pt")
             meta = {"iteration": it, "difficulty": difficulty}
             save_checkpoint(path, ppo, meta, learner)

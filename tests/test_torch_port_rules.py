@@ -91,7 +91,8 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "assert {'dexrobot_isaac_tpu_torch.tools.diag_rollout', "
         "'dexrobot_isaac_tpu_torch.tools.dexhand_test', 'dexrobot_isaac_tpu_torch.rl.export', "
-        "'dexrobot_isaac_tpu_torch.models.mjcf', 'dexrobot_isaac_tpu_torch.envs.rule_based'} "
+        "'dexrobot_isaac_tpu_torch.models.mjcf', 'dexrobot_isaac_tpu_torch.envs.rule_based', "
+        "'dexrobot_isaac_tpu_torch.parallel.mesh', 'dexrobot_isaac_tpu_torch.parallel.distributed'} "
         "<= set(sys.modules)\n"
         "print(len([k for k in sys.modules if k.startswith('dexrobot_isaac_tpu_torch')]))\n"
     )
