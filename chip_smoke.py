@@ -101,6 +101,25 @@ failing the run when it fails:
            trace exists and names K1's kernel (fused_step_kernel).
    diag    tools/diag_rollout.py from the [train] checkpoint, 4096 envs x 50
            steps on the unfused step: K2 launches 50.
+   graphics the evaluation path's graphics sidecar (`graphics_phase`;
+           OpenCV imports on the card's machine, matplotlib does not, so
+           the mp4 and the MJPEG stream run here and the viewer's window
+           is not drawn): env 0's 640x480 frame from K2's state after 3
+           random steps at 4096 envs against the plain step's (at most
+           0.5% of the pixels differ) and against the FK of every env
+           (bitwise); the E key's masked reset and one K2 step against the
+           same step without it (every other env's rows bitwise equal);
+           the CLI's evaluation from the [train] checkpoint with the
+           viewer, the stream and the mp4 (episodeLength 40), the keys
+           Enter, ArrowUp, e and space sent through the stream's /control
+           after frame 5: view mode 1, selected env 1, random actions on,
+           one reset of env 1, K2 launches = frames = the stream's
+           frames_received, an mp4 over 1 kB, the termination reasons
+           printed; evaluation env-steps/s with the sidecar off and on
+           (mp4 + MJPEG, unpaced; the same steps); ms per frame split into
+           FK + copy to the host, rasterizing, JPEG and mp4v encoding;
+           BoxStacking, 10 unfused steps through K2's two-box build, env
+           0's frame holding pixels of the second box's colour.
    dist    multi-process training (`dist_phase`): the CLI in subprocesses
            (`python3 chip_smoke.py --dist-worker ...`, each cut at
            DIST_TIMEOUT s) with torchrun's environment. (a) NCCL at world
@@ -760,6 +779,205 @@ def surface_phases(dev, n, gen, train_run, tr, ckpt, horizon):
     return counted
 
 
+GRAPHICS_RES = (640, 480)
+GRAPHICS_PORT = 18500
+# the keys a browser sends through the stream's /control, after this frame
+GRAPHICS_KEYS, GRAPHICS_KEY_FRAME = ("Enter", "ArrowUp", "e", "%20"), 5
+GRAPHICS_EPISODE = 40    # env.episodeLength of [graphics]'s evaluations
+GRAPHICS_FRAMES = 20     # frames timed for the per-frame split
+
+
+def shaded_pixels(frame, color) -> int:
+    """Pixels of `color` under the rasterizer's light (a shade between its
+    0.35 ambient and 1), each channel within 2 levels."""
+    f = frame.astype(np.float64)
+    shade = f[..., 0] / (255.0 * color[0])
+    ok = (shade >= 0.34) & (shade <= 1.01)
+    for ch in (1, 2):
+        ok &= np.abs(f[..., ch] - 255.0 * color[ch] * shade) <= 2.0
+    return int(ok.sum())
+
+
+def per_env_leaves(state, n) -> dict:
+    """{name: tensor} of the leaves of an EnvState whose leading dim is n."""
+    out = {}
+
+    def walk(x, name):
+        if isinstance(x, torch.Tensor):
+            if x.ndim and x.shape[0] == n:
+                out[name] = x
+        elif isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, f"{name}.{k}")
+        elif dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name), f"{name}.{f.name}")
+
+    walk(state, "state")
+    return out
+
+
+def graphics_phase(dev, n, gen, cli, train_run, ckpt, card) -> dict:
+    """[graphics]: the evaluation path's sidecar on the card (frames drawn
+    on the host from K2's states). Returns {K2 build: launches} of its
+    counted runs."""
+    import urllib.request
+
+    import cv2
+
+    from dexrobot_isaac_tpu_torch.factory import make_env
+    from dexrobot_isaac_tpu_torch.graphics import renderer as rmod
+    from dexrobot_isaac_tpu_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    counted = {}
+    # ---- frames of K2's and of the plain step's states on the same inputs
+    env = make_env(load_config(["task=BlindGrasping", f"numEnvs={n}"]), seed=17, device=dev)
+    c = env.comps
+    ks, _ = env.reset_fn()
+    ps = ks
+    for _ in range(3):
+        samples = env.draw_samples(n, ks.difficulty)
+        acts = torch.rand(n, env.num_actions, generator=gen, device=dev) * 2 - 1
+        ks, *_ = env._step(ks, acts, *samples, env._control_step)
+        ps, *_ = env._step(ps, acts, *samples, env._plain_control_step)
+    r = rmod.SceneRenderer(c.model, resolution=GRAPHICS_RES, box_size=c.engine.params.box_size)
+    frames = [rmod.env_rows(c.engine, s_.physics, env._spawn, s_.body_contact_force, 0).render(
+        r, "games 0") for s_ in (ks, ps)]
+    n_px = GRAPHICS_RES[0] * GRAPHICS_RES[1]
+    off = int((frames[0] != frames[1]).any(-1).sum())
+    kin_all = c.engine.fk(ks.physics.q, ks.physics.qd, env._spawn.expand(n, 3))
+    f_all = rmod.EnvRows.select(kin_all, ks.physics, ks.body_contact_force, 0).render(r, "games 0")
+    same = bool(np.array_equal(f_all, frames[0]))
+    log(f"[graphics] env 0 at {GRAPHICS_RES[0]}x{GRAPHICS_RES[1]} after 3 random steps of "
+        f"{n} envs: the frame from K2's state vs the plain step's differs in {off} of {n_px} "
+        f"pixels (limit {int(0.005 * n_px)}, 0.5%); FK of env 0 alone vs FK of all {n} envs: "
+        f"frames bitwise equal {same}")
+    check(off <= 0.005 * n_px and same and frames[0].std() > 5.0,
+          "the frame of K2's state leaves the plain step's, or FK of one env differs")
+
+    # ---- the E key's reset: the other envs' rows bitwise those of the same
+    # step without it
+    idx = 1
+    samples = env.draw_samples(n, ks.difficulty)
+    acts = torch.rand(n, env.num_actions, generator=gen, device=dev) * 2 - 1
+    plain_next, *_ = env.step_fn(ks, acts, samples)
+    keyed_next, *_ = env.step_fn(cli.masked_reset(env, ks, idx), acts, samples)
+    a_, b_ = per_env_leaves(plain_next, n), per_env_leaves(keyed_next, n)
+    others = torch.arange(n, device=dev) != idx
+    other_equal = sorted(a_) == sorted(b_) and all(
+        torch.equal(a_[k][others], b_[k][others]) for k in a_)
+    moved = not torch.equal(a_["state.physics.q"][idx], b_["state.physics.q"][idx])
+    log(f"[graphics] E key on env {idx} then one K2 step at {n} envs: the other envs' rows "
+        f"({len(a_)} leaves) bitwise equal to the step without the key {other_equal}; env "
+        f"{idx}'s q changed {moved}")
+    check(other_equal and moved, "the E key's masked reset reached another env's rows")
+
+    # ---- the CLI's evaluation with the viewer, the stream and the mp4; the
+    # keys sent through /control as a browser sends them
+    ev_args = ["task=BlindGrasping", f"numEnvs={n}", "train.logging.noLogFile=true",
+               "test=true", f"checkpoint={ckpt}", f"testGamesNum={n}",
+               f"env.episodeLength={GRAPHICS_EPISODE}", f"env.stream.port={GRAPHICS_PORT}"]
+    after = cli.Sidecar.after_step
+
+    def after_step(sc, state, games):
+        after(sc, state, games)
+        if sc.frames == GRAPHICS_KEY_FRAME:
+            for k in GRAPHICS_KEYS:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{sc.streamer.port}/control?key={k}", timeout=10):
+                    pass
+
+    cli.Sidecar.after_step = after_step
+    try:
+        ev, ev_launches, ev_s = train_run(ev_args + [
+            "env.viewer=true", "env.videoStream=true", "env.videoRecord=true"], False)
+    finally:
+        cli.Sidecar.after_step = after
+    counted["control_step"] = ev_launches["control_step"]
+    st = ev.stats[-1]
+    sc = st["sidecar"]
+    mp4 = os.path.join(ev.run_dir, "videos", "episode_00001.mp4")
+    mp4_bytes = os.path.getsize(mp4) if os.path.exists(mp4) else 0
+    n_ep = max(1, st["episodes"])
+    reasons = ", ".join(f"{k.replace('_reason_', ':')} {v / n_ep:.3f}"
+                        for k, v in sorted(st["reasons"].items()) if v) or "none fired"
+    log(f"[graphics] CLI evaluation, viewer + stream + mp4, {n} envs, episodeLength "
+        f"{GRAPHICS_EPISODE}, paced to control_dt {ev.env.control_dt:.3f} s: {st['episodes']} "
+        f"episodes in {sc['frames']} steps, {ev_s:.2f} s; keys {GRAPHICS_KEYS} through /control "
+        f"after frame {GRAPHICS_KEY_FRAME}: view mode {sc['view_mode']}, selected env "
+        f"{sc['selected_env']}, random actions {sc['random_actions']}, E-key resets "
+        f"{sc['resets']}; /stats frames_received {sc['stream']['frames_received']}, keys_received "
+        f"{sc['stream'].get('keys_received')}; {os.path.relpath(mp4, ROOT)} {mp4_bytes} bytes; "
+        f"launches {ev_launches}")
+    log(f"[graphics] termination reasons over {st['episodes']} episodes (success {st['success']}, "
+        f"failure {st['failure']}, timeout {st['timeout']}): {reasons}")
+    check((sc["view_mode"], sc["selected_env"], sc["random_actions"], sc["resets"])
+          == (1, 1, True, [1]), f"the keys did not act as the key table says: {sc}")
+    check(ev_launches["control_step"] == sc["frames"] == sc["stream"]["frames_received"]
+          and st["episodes"] >= n and mp4_bytes > 1000,
+          "evaluation's K2 launches, frames and stream disagree, or the mp4 is missing")
+
+    # ---- evaluation env-steps/s with the sidecar off and on (no viewer, so
+    # no pacing; the same steps)
+    rates = {}
+    for label, extra in (("off", []), ("on", ["env.videoStream=true", "env.videoRecord=true"])):
+        run, launches, secs = train_run(ev_args + extra, False)
+        rates[label] = (launches["control_step"], launches["control_step"] * n / secs, secs)
+    log(f"[graphics] evaluation, {n} envs, {rates['off'][0]} steps: sidecar off "
+        f"{rates['off'][1]:,.0f} env-steps/s ({rates['off'][2]:.2f} s), on (mp4 + MJPEG of env "
+        f"0 each step) {rates['on'][1]:,.0f} env-steps/s ({rates['on'][2]:.2f} s) ({card})")
+    check(rates["off"][0] == rates["on"][0], f"the two evaluations took other steps: {rates}")
+
+    # ---- ms per frame: FK of env 0 and its copy to the host, rasterizing,
+    # encoding (JPEG as the stream, mp4v as the recorder)
+    def per_call_ms(fn):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(GRAPHICS_FRAMES):
+            out = fn()
+        return (time.perf_counter() - t0) * 1e3 / GRAPHICS_FRAMES, out
+
+    fk_ms, rows = per_call_ms(lambda: rmod.env_rows(c.engine, ks.physics, env._spawn,
+                                                     ks.body_contact_force, 0))
+    raster_ms, frame = per_call_ms(lambda: rows.render(r, "games 0"))
+    jpeg_ms, _ = per_call_ms(lambda: cv2.imencode(".jpg", frame[..., ::-1],
+                                                  [int(cv2.IMWRITE_JPEG_QUALITY), 80]))
+    probe = os.path.join(ROOT, "runs_all", "graphics_probe.mp4")
+    writer = cv2.VideoWriter(probe, cv2.VideoWriter_fourcc(*"mp4v"), 25.0, GRAPHICS_RES)
+    mp4_ms, _ = per_call_ms(lambda: writer.write(frame[..., ::-1]))
+    writer.release()
+    log(f"[graphics] ms per frame at {GRAPHICS_RES[0]}x{GRAPHICS_RES[1]} (mean of "
+        f"{GRAPHICS_FRAMES}, host clock): FK of env 0 on the card + copy to the host "
+        f"{fk_ms:.2f}, rasterizing {raster_ms:.2f}, JPEG {jpeg_ms:.2f}, mp4v {mp4_ms:.2f} ({card})")
+
+    # ---- BoxStacking: the second box through K2's two-box build
+    env_st = make_env(load_config(["task=BoxStacking", f"numEnvs={n}"]), seed=17, device=dev)
+    env_st.reset()
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    for _ in range(10):
+        env_st.step(torch.rand(n, env_st.num_actions, generator=gen, device=dev) * 2 - 1)
+    torch.cuda.synchronize()
+    counted["control_step_box2"] = kb.LAUNCHES["control_step_box2"]
+    c_st = env_st.comps
+    r_st = rmod.SceneRenderer(c_st.model, resolution=GRAPHICS_RES,
+                              box_size=c_st.engine.params.box_size)
+    rows_st = rmod.env_rows(c_st.engine, env_st.state.physics, env_st._spawn,
+                            env_st.state.body_contact_force, 0)
+    box2_size = c_st.engine.params.box2_size
+    with_box2 = shaded_pixels(rows_st.render(r_st, "env 0", box2_size=box2_size), rmod.BOX2_COLOR)
+    without = shaded_pixels(dataclasses.replace(rows_st, box2_pos=None).render(r_st, "env 0"),
+                            rmod.BOX2_COLOR)
+    log(f"[graphics] BoxStacking, {n} envs, 10 unfused steps: launches "
+        f"{counted['control_step_box2']} of control_step_box2; env 0's frame holds {with_box2} "
+        f"pixels of the second box's colour {rmod.BOX2_COLOR} shaded ({without} without it)")
+    check(counted["control_step_box2"] == 10 and with_box2 - without >= 50,
+          "BoxStacking's evaluation missed K2's two-box build or did not draw the second box")
+    log(f"[graphics] phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return counted
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -1168,6 +1386,9 @@ def main() -> int:
     # ---------------------------------------------------------------- user surface
     surface = surface_phases(dev, N_ENVS, gen, train_run, tr, ckpt, horizon)
 
+    # ---------------------------------------------------------------- graphics
+    graphics = graphics_phase(dev, N_ENVS, gen, cli, train_run, ckpt, card)
+
     # ---------------------------------------------------------------- dist
     dist_launches = dist_phase(N_ENVS)
 
@@ -1294,6 +1515,8 @@ def main() -> int:
         k1_task[label]["flops"] = fused_step.fused_step_flops(cfg_t, r_t, N_ENVS, done_t,
                                                               fused_t.build)
     launches["spd_solve"] = co_launches["spd_solve"]
+    for name, count in graphics.items():  # [graphics]'s evaluation runs
+        launches[name] += count
     k3_bound = bound(b_k3, f_k3)[0]
     log(f"[numbers] spd_solve at {N_ENVS} systems: warm {k3_ms:.5f} ms/launch (queued; paced by "
         f"the host's launches {k3_paced_ms:.5f}), cold {k3_cold_ms:.5f} ms/launch = "
@@ -1328,7 +1551,8 @@ def main() -> int:
                         "launches": launches[name], "max_abs_err": err, "ms": ms,
                         "paced_ms": paced, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                         "library_ms": lib_ms, "timing": timing,
-                        **({"launches_dist": dist_launches} if name == "fused_step" else {})})
+                        **({"launches_dist": dist_launches} if name == "fused_step" else {}),
+                        **({"launches_graphics": graphics[name]} if name in graphics else {})})
         log(f"[numbers] {name}: {ms:.5f} ms/launch (paced by the host {paced:.5f}), plain "
             f"{pms:.4f} ms, bound {bms:.5f} ms ({by}), library "
             f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, launches {launches[name]}")

@@ -83,7 +83,7 @@ def task_reset(src, device="cuda") -> TaskReset:
 
 
 def hand_model(src) -> HandModel:
-    return HandModel(**{f.name: (list(getattr(src, f.name)) if f.type in ("List[str]",)
+    return HandModel(**{f.name: (list(getattr(src, f.name)) if f.type.startswith("List[")
                                  else np.array(getattr(src, f.name)))
                         for f in dataclasses.fields(HandModel)})
 

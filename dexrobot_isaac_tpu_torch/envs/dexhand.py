@@ -34,10 +34,11 @@ envs (`num_envs` is the local count, `parallel/distributed.py`
 `group.rank_seed(seed)` (JAX folds the shard index into its reset and DR
 keys, `envs/dexhand.py:222-225`, `:443-446`). The consecutive-successes
 counter counts a success on any rank: one int32 all-reduced (max) per step,
-on the device (JAX `pmax`, `:301-306`). JAX also averages its scalar extras
-over the shards (`:421-427`): those are the termination rates, which the
-port's termination does not emit; its one scalar extra,
-`consecutive_successes`, is global by the max.
+on the device (JAX `pmax`, `:301-306`). `step_fn` averages the float
+scalar extras, the termination rates and criterion means, over the ranks
+in one all-reduce per step (JAX `pmean`s its scalar extras, `:421-427`);
+`consecutive_successes` is global by the max. The fused step's extras
+have no such keys, as JAX's.
 
 The stateful wrapper carries the JAX env's user API: `reset`/`step`,
 `observation_space`/`action_space`, `set_difficulty`, `get_obs_slice` and
@@ -189,7 +190,10 @@ class DexHandEnv:
         n = state.physics.q.shape[0]
         if samples is None:
             samples = self.draw_samples(n, state.difficulty)
-        return self._step(state, actions, *samples, self._control_step)
+        new, obs, rew, done, extras = self._step(state, actions, *samples, self._control_step)
+        rates = {k: v for k, v in extras.items()
+                 if isinstance(v, torch.Tensor) and v.ndim == 0 and v.is_floating_point()}
+        return new, obs, rew, done, {**extras, **self.group.all_reduce_mean(rates)}
 
     def _step(self, state: EnvState, actions, reset_vals: TaskReset, dr_new, control_step):
         c = self.comps
@@ -287,9 +291,6 @@ class DexHandEnv:
             "episode_length": new_count,
             "reward_components": components,
             **term_info,
-            # each criterion's episode flag before the reset clears it
-            **{f"success_reason_{k}": v for k, v in new_s.items()},
-            **{f"failure_reason_{k}": v for k, v in new_f.items()},
         }
         if "spawn_difficulty" in state.task_states:
             # the curriculum's strict gate (train.py promote_strict): episodes

@@ -58,7 +58,10 @@ def builtin_failure_criteria(cfg: TerminationConfig, obs_dict) -> Dict[str, torc
 def evaluate_termination(cfg: TerminationConfig, episode_step_count, success_criteria,
                          failure_criteria, success_flags, failure_flags):
     """Returns (should_reset, info, termination_reward, term_components,
-    new_success_flags, new_failure_flags)."""
+    new_success_flags, new_failure_flags). `info` holds the success,
+    failure and timeout masks, their rates, each active criterion's mean
+    (`success_<name>`, `failure_<name>`) and each criterion's episode flag
+    (`success_reason_<name>`, `failure_reason_<name>`), as JAX's."""
     n = episode_step_count.shape[0]
     dev = episode_step_count.device
 
@@ -82,7 +85,16 @@ def evaluate_termination(cfg: TerminationConfig, episode_step_count, success_cri
     f = lambda m: m.float()
     term_reward = (f(succ_t) * cfg.success_reward - f(fail_t) * cfg.failure_penalty
                    - f(tout_t) * cfg.timeout_penalty)
-    info = {"success": succ_t, "failure": fail_t, "timeout": tout_t}
+    info = {"success": succ_t, "failure": fail_t, "timeout": tout_t,
+            "success_rate": f(succ_t).mean(), "failure_rate": f(fail_t).mean(),
+            "timeout_rate": f(tout_t).mean(),
+            **{f"success_{k}": f(success_criteria[k]).mean()
+               for k in cfg.active_success(success_criteria)},
+            **{f"failure_{k}": f(failure_criteria[k]).mean()
+               for k in cfg.active_failure(failure_criteria)},
+            # each criterion's episode flag (before the reset clears it)
+            **{f"success_reason_{k}": v for k, v in new_s.items()},
+            **{f"failure_reason_{k}": v for k, v in new_f.items()}}
     comps = {
         "termination_success": f(succ_t),
         "termination_success_weighted": f(succ_t) * cfg.success_reward,

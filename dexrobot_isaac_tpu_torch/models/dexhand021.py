@@ -109,6 +109,12 @@ class HandModel:
     sphere_body: np.ndarray     # (C,) int
     sphere_pos: np.ndarray      # (C, 3)
     sphere_radius: np.ndarray   # (C,)
+    # Visual geometry for the renderer (graphics/renderer.py), in body frame:
+    #   ("capsule", body, p0 (3,), p1 (3,), radius)
+    #   ("box", body, center (3,), quat (4,), half_extents (3,))
+    #   ("sphere", body, center (3,), radius)
+    # Empty: the renderer draws the collision spheres instead.
+    visual_geoms: List[tuple] = dataclasses.field(default_factory=list)
 
     @property
     def num_bodies(self) -> int:
@@ -242,6 +248,12 @@ def build_hand_model() -> HandModel:
     # --- fingers ---
     sites: List[Tuple[str, int, np.ndarray, np.ndarray]] = []
     spheres: List[Tuple[int, np.ndarray, float]] = []
+    # palm visual: the slab the inertia models, axis-aligned in world at q=0,
+    # so Ry(-90) in the palm frame (which carries the built-in Ry(90))
+    vgeoms: List[tuple] = [(
+        "box", 5, _w2l([0.045, 0.005, -0.010]), _QUAT_RY_M90.copy(),
+        np.array([0.045, 0.045, 0.015]),
+    )]
     for f in range(1, 6):
         base_pt_w, root_quat, lengths = _FINGER_GEOM[f]
         for j in range(1, 5):
@@ -269,6 +281,11 @@ def build_hand_model() -> HandModel:
             armature[bi] = 0.002
             # collision spheres along the link
             spheres.append((bi, np.array([0.5 * L, 0.0, 0.0]), _FINGER_RADIUS))
+            # visual: the phalanx as a capsule along the link's +x rod
+            vgeoms.append((
+                "capsule", bi, np.zeros(3), np.array([L, 0.0, 0.0]),
+                _TIP_RADIUS if j == 4 else _FINGER_RADIUS,
+            ))
             if j == 4:
                 # distal link: tip + pad spheres and sites
                 tip_pos = np.array([L, 0.0, 0.0])
@@ -309,5 +326,6 @@ def build_hand_model() -> HandModel:
         sphere_body=np.array([s[0] for s in spheres], dtype=np.int32),
         sphere_pos=np.stack([s[1] for s in spheres]),
         sphere_radius=np.array([s[2] for s in spheres]),
+        visual_geoms=vgeoms,
     )
     return model

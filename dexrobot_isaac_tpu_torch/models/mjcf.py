@@ -17,9 +17,9 @@ Supported subset:
 - <joint> hinge/slide with axis, range, damping, armature, limited;
 - <geom> sphere, capsule (three spheres along its axis) and box (one sphere
   of the smallest half-size) as collision spheres; visual-only geoms
-  (type="mesh", or contype=0 with conaffinity=0) generate no collision and
-  are skipped (the JAX loader records the primitive ones for its renderer,
-  which the port does not have yet);
+  (type="mesh", or contype=0 with conaffinity=0) generate no collision, and
+  the primitive ones among them (sphere, capsule by `fromto` or `size`, box)
+  go into `HandModel.visual_geoms` for the renderer (meshes are skipped);
 - <site> frames; <inertial> mass/pos/diaginertia(+quat)/fullinertia, else
   geom-derived point masses;
 - <default> class hierarchies through `class` and `childclass`;
@@ -147,6 +147,7 @@ def load_mjcf(path: str) -> HandModel:
     armature: List[float] = []
     sites: List[Tuple[str, int, np.ndarray, np.ndarray]] = []
     spheres: List[Tuple[int, np.ndarray, float]] = []
+    vgeoms: List[tuple] = []
 
     def walk(elem: ET.Element, parent_idx: int, pending_pos, pending_quat,
              active_class: str = ""):
@@ -217,14 +218,32 @@ def load_mjcf(path: str) -> HandModel:
                 gpos = _parse_vec(geom.get("pos"), [0, 0, 0])
                 size = _parse_vec(geom.get("size"), [0.005])
                 # visual-only geoms (contype=0 + conaffinity=0, or a mesh)
-                # generate no collision
+                # generate no collision; primitives among them feed the
+                # renderer
                 visual_only = (
                     gtype == "mesh"
                     or (gg("contype", "1") == "0"
                         and gg("conaffinity", "1") == "0")
                 )
                 if visual_only:
-                    pass
+                    if gtype == "sphere":
+                        vgeoms.append(("sphere", bi, gpos, float(size[0])))
+                    elif gtype == "capsule":
+                        fromto = _parse_vec(geom.get("fromto"))
+                        r = float(size[0])
+                        if fromto is not None:
+                            a, b = fromto[:3], fromto[3:]
+                        else:
+                            half = size[1] if len(size) > 1 else r
+                            a = gpos - np.array([0, 0, half])
+                            b = gpos + np.array([0, 0, half])
+                        vgeoms.append(("capsule", bi, a, b, r))
+                    elif gtype == "box":
+                        vgeoms.append((
+                            "box", bi, gpos, _orient(geom),
+                            np.asarray(size[:3], dtype=np.float64),
+                        ))
+                    # a mesh's vertices live in the asset file: skipped
                 elif gtype == "sphere":
                     spheres.append((bi, gpos, float(size[0])))
                 elif gtype == "capsule":
@@ -310,6 +329,7 @@ def load_mjcf(path: str) -> HandModel:
         sphere_pos=(np.stack([s[1] for s in spheres]) if spheres
                     else np.zeros((0, 3))),
         sphere_radius=np.asarray([s[2] for s in spheres]),
+        visual_geoms=vgeoms,
     )
 
 

@@ -4,6 +4,7 @@
     python -m dexrobot_isaac_tpu_torch.tools.dexhand_test task=BlindGrasping steps=40 device=cpu
     python -m dexrobot_isaac_tpu_torch.tools.dexhand_test mode=contact
     python -m dexrobot_isaac_tpu_torch.tools.dexhand_test mode=rulebased
+    python -m dexrobot_isaac_tpu_torch.tools.dexhand_test videoRecord=true plot=true live=true
 
 It builds an env (2 envs; on the card unless `device=cpu`; other `key=value`
 overrides go to the config) and checks: the action space against the
@@ -21,9 +22,13 @@ half magnitude. Then, by `mode`:
   and `adaptive_grasp` (envs/rule_based.py) and a policy that controls
   nothing (0 actions); the base must move.
 
-`videoRecord`, `plot` and `live` need the graphics modules, which the port
-does not have yet: they raise NotImplementedError. Exit code 0 when every
-check passes.
+Options of the sweep: `videoRecord=true` renders env 0 during the sweeps
+of the first three actions into `dexhand_test_videos/episode_00001.mp4`;
+`plot=true` saves env 0's reward and ARTx position over action 0's sweep
+to `dexhand_test_series.png`; `live=true` serves env 0's reward, the
+action magnitude, the swept DOF and its contact count as live charts at
+`http://127.0.0.1:8090/` (graphics/liveplot.py; the next free port if
+taken) while the sweep runs. Exit code 0 when every check passes.
 """
 
 from __future__ import annotations
@@ -49,11 +54,11 @@ from dexrobot_isaac_tpu_torch.envs.rule_based import (
     make_pre_action_rule,
 )
 from dexrobot_isaac_tpu_torch.factory import TASK_REGISTRY, make_env
+from dexrobot_isaac_tpu_torch.graphics.liveplot import LivePlotServer
+from dexrobot_isaac_tpu_torch.graphics.renderer import SceneRenderer, env_rows
+from dexrobot_isaac_tpu_torch.graphics.video import VideoRecorder
 from dexrobot_isaac_tpu_torch.utils.config import get_by_path, load_config
 from dexrobot_isaac_tpu_torch.utils.logging import setup_logging
-
-GRAPHICS = {"videoRecord": "video recording", "plot": "plotting", "live": "live charts"}
-
 
 def expected_action_mapping(pcb: bool, pcf: bool) -> Dict[int, List[Tuple[int, float]]]:
     """action index -> [(DOF index, coupling scale), ...]."""
@@ -196,7 +201,7 @@ def run_rule_based_test(cfg, steps: int, device, logger) -> int:
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    steps, mode, device, keep = 30, "sweep", "cuda", []
+    steps, mode, device, plot, live, keep = 30, "sweep", "cuda", False, False, []
     for a in argv:
         key, _, val = a.partition("=")
         if key == "steps":
@@ -205,11 +210,10 @@ def main(argv=None) -> int:
             mode = val
         elif key == "device":
             device = val
-        elif key in GRAPHICS or key == "env.videoRecord":
-            if val.lower() in ("1", "true", "yes"):
-                raise NotImplementedError(
-                    f"{key}: {GRAPHICS.get(key, 'video recording')} needs the graphics "
-                    "modules, which come with the port's graphics slice")
+        elif key == "plot":
+            plot = val.lower() in ("1", "true", "yes")
+        elif key == "live":
+            live = val.lower() in ("1", "true", "yes")
         else:
             keep.append(a)
 
@@ -250,6 +254,18 @@ def main(argv=None) -> int:
     if mode == "rulebased":
         return run_rule_based_test(cfg, max(steps, 40), device, logger)
 
+    recorder = renderer = liveplot = None
+    if get_by_path(cfg, "env.videoRecord", False):
+        renderer = SceneRenderer(env.comps.model)
+        recorder = VideoRecorder("dexhand_test_videos")
+        recorder.finalize_fps(env.control_dt)
+        recorder.start_episode()
+    if live:
+        liveplot = LivePlotServer()
+        liveplot.start()
+        logger.info(f"Live charts: http://127.0.0.1:{liveplot.port}/")
+    series = {"reward": [], "dof": []} if plot else None
+
     # the action-to-DOF sweep: each action's mapped DOFs respond in the
     # simulated state
     mapping = expected_action_mapping(pcb, pcf)
@@ -264,8 +280,25 @@ def main(argv=None) -> int:
             mag = (1.0 - abs(2 * phase - 1.0)) * 2 - 1.0  # -1 -> +1 -> -1
             actions = torch.zeros(env.num_envs, env.num_actions, device=env.device)
             actions[:, a_idx] = mag
-            env.step(actions)
-            dev = np.maximum(dev, np.abs(env.state.physics.q[0].cpu().numpy() - base_q))
+            _, rew, _, _ = env.step(actions)
+            q0 = env.state.physics.q[0].cpu().numpy()
+            if series is not None and a_idx == 0:
+                series["reward"].append(float(rew[0]))
+                series["dof"].append(float(q0[0]))
+            if liveplot is not None:
+                liveplot.log_many({
+                    "reward (env 0)": float(rew[0]),
+                    "action magnitude": float(mag),
+                    f"q[{a_idx}] sweep DOF": float(q0[mapping[a_idx][0][0]]),
+                    "contacts (env 0)": float(env.state.prev_contact_binary[0].sum()),
+                })
+            dev = np.maximum(dev, np.abs(q0 - base_q))
+            if recorder is not None and a_idx < 3:
+                rows = env_rows(env.comps.engine, env.state.physics, env._spawn, None, 0)
+                recorder.add_frame(renderer.render_state(
+                    rows.body_pos, rows.body_quat,
+                    box_pos=rows.box_pos if env.comps.engine.params.has_box else None,
+                    box_quat=rows.box_quat, title=f"action {a_idx} t={t}"))
         weak = [DOF_NAMES[d] for d, _ in mapping[a_idx] if d != j31 and dev[d] < 5e-4]
         if weak:
             weak_actions.append(a_idx)
@@ -273,6 +306,27 @@ def main(argv=None) -> int:
         else:
             logger.info(f"action {a_idx}: mapped-DOF response OK (min dev "
                         f"{min(dev[d] for d, _ in mapping[a_idx] if d != j31):.4f})")
+    if recorder is not None:
+        recorder.stop_episode()
+        recorder.close()
+        renderer.close()
+    if liveplot is not None:
+        liveplot.stop()
+    if series is not None and series["reward"]:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        fig, axes = plt.subplots(2, 1, figsize=(8, 6))
+        axes[0].plot(series["reward"])
+        axes[0].set_title("reward (env 0, action 0 sweep)")
+        axes[1].plot(series["dof"])
+        axes[1].set_title("ARTx position")
+        fig.tight_layout()
+        fig.savefig("dexhand_test_series.png", dpi=100)
+        plt.close(fig)
+        logger.info("Saved dexhand_test_series.png")
     if weak_actions:
         logger.error(f"Actions with no DOF response: {weak_actions}")
         return 1

@@ -22,8 +22,17 @@ either device (its plain version on the CPU) and raises where it is
 unsupported; off runs the unfused step. `test=true` always runs the unfused
 step. `train.profile=N` traces iterations 2 to 1+N with torch.profiler (CPU
 and, on the card, CUDA activities) into `<run_dir>/profile/trace.json`, a
-Chrome trace. Video, the viewer and streaming are not ported: the CLI
-refuses them.
+Chrome trace.
+
+Evaluation drives the graphics sidecar (graphics/), which draws env 0's
+state (the viewer's selected env) on the host after each step:
+`env.videoRecord=true` writes mp4 files to `env.video.outputDir` (default
+`<run_dir>/videos`), `env.videoStream=true` serves MJPEG at
+`http://<env.stream.host>:<env.stream.port>/` (8080, the next free port if
+taken), and `env.viewer=true` adds the interactive viewer (keys ENTER, F,
+UP/DOWN, E resets the selected env, SPACE toggles random actions, C; from
+a matplotlib window, or from the stream's page) and paces the loop to
+`control_dt`. Training reads none of the three.
 
 Training on several cards takes one process per card:
 
@@ -52,6 +61,11 @@ import numpy as np
 import torch
 
 from dexrobot_isaac_tpu_torch.envs.fused_step import FusedUnsupported
+from dexrobot_isaac_tpu_torch.envs.types import EnvState
+from dexrobot_isaac_tpu_torch.graphics.renderer import SceneRenderer, env_rows
+from dexrobot_isaac_tpu_torch.graphics.streamer import HTTPVideoStreamer
+from dexrobot_isaac_tpu_torch.graphics.video import VideoRecorder
+from dexrobot_isaac_tpu_torch.graphics.viewer import ViewerController
 from dexrobot_isaac_tpu_torch.parallel.distributed import make_sharded_env
 from dexrobot_isaac_tpu_torch.parallel.mesh import Group, init_distributed, launched_world_size
 from dexrobot_isaac_tpu_torch.rl.checkpoint import (
@@ -66,10 +80,6 @@ from dexrobot_isaac_tpu_torch.utils.config import ALIASES, get_by_path, load_con
 from dexrobot_isaac_tpu_torch.utils.device import resolve_device
 from dexrobot_isaac_tpu_torch.utils.experiment import ExperimentManager, resolve_checkpoint
 from dexrobot_isaac_tpu_torch.utils.logging import setup_logging
-
-_UNPORTED = {"env.videoRecord": "video recording", "env.videoStream": "video streaming",
-             "env.viewer": "the viewer"}
-
 
 @dataclasses.dataclass
 class CliRun:
@@ -161,9 +171,6 @@ def usage_text() -> str:
 
 
 def build(cfg: Dict[str, Any]) -> CliRun:
-    for key, what in _UNPORTED.items():
-        if get_by_path(cfg, key):
-            raise NotImplementedError(f"{key}: {what} is not ported to the torch CLI yet")
     test_mode = bool(get_by_path(cfg, "train.test", False))
     if test_mode and launched_world_size() > 1:
         raise RuntimeError("test=true is single-process: launch evaluation without torchrun "
@@ -402,9 +409,117 @@ def run_train(s: CliRun) -> int:
     return 0
 
 
+def masked_reset(env, state: EnvState, env_idx: int, samples=None) -> EnvState:
+    """The viewer's E key: a fresh `reset_fn` state merged into env
+    `env_idx`'s rows of every leaf whose leading dimension is the env count;
+    the other envs' rows and the other leaves stay. `samples` as in
+    `reset_fn`; drawn from the env's generator when omitted."""
+    fresh, _ = env.reset_fn(samples)
+    mask = torch.arange(env.num_envs, device=env.device) == env_idx
+
+    def merge(new, cur):
+        if isinstance(new, torch.Tensor):
+            if new.ndim >= 1 and new.shape[0] == env.num_envs:
+                return torch.where(mask.reshape((-1,) + (1,) * (new.ndim - 1)), new, cur)
+            return cur
+        if isinstance(new, dict):
+            return {k: merge(v, cur[k]) for k, v in new.items()}
+        if dataclasses.is_dataclass(new):
+            return dataclasses.replace(cur, **{f.name: merge(getattr(new, f.name),
+                                                             getattr(cur, f.name))
+                                               for f in dataclasses.fields(new)})
+        return cur
+
+    return merge(fresh, state)
+
+
+class Sidecar:
+    """Evaluation's graphics (graphics/): the renderer and, as configured,
+    the mp4 recorder, the MJPEG streamer and the interactive viewer with
+    its E-key reset request and random-action flag. Frames are drawn on
+    the host from the state each step returns."""
+
+    def __init__(self, cfg, env, run_dir: str, logger):
+        self.env, self.logger = env, logger
+        self.recorder = self.streamer = self.viewer = None
+        self.random_actions, self.reset_request, self.resets, self.frames = False, None, [], 0
+        params = env.comps.engine.params
+        self.has_box, self.box2_size = params.has_box, params.box2_size
+        resolution = get_by_path(cfg, "env.video.resolution", [640, 480])
+        self.renderer = SceneRenderer(env.comps.model, resolution=tuple(resolution),
+                                      box_size=params.box_size)
+        if get_by_path(cfg, "env.videoRecord", False):
+            out_dir = get_by_path(cfg, "env.video.outputDir") or os.path.join(run_dir, "videos")
+            self.recorder = VideoRecorder(out_dir, max_duration_seconds=float(
+                get_by_path(cfg, "env.video.maxDurationSeconds", 60)))
+            self.recorder.finalize_fps(env.control_dt)
+            self.recorder.start_episode()
+        if get_by_path(cfg, "env.videoStream", False):
+            self.streamer = HTTPVideoStreamer(
+                host=get_by_path(cfg, "env.stream.host", "127.0.0.1"),
+                port=int(get_by_path(cfg, "env.stream.port", 8080)))
+            self.streamer.start()
+        if get_by_path(cfg, "env.viewer", False):
+            self.viewer = ViewerController(
+                self.renderer, env.num_envs,
+                on_reset_env=lambda i: setattr(self, "reset_request", i),
+                on_toggle_random_actions=self._toggle_random, streamer=self.streamer,
+                box2_size=self.box2_size)
+
+    def _toggle_random(self) -> None:
+        self.random_actions = not self.random_actions
+        self.logger.info(f"Random actions: {self.random_actions}")
+
+    def before_step(self, state: EnvState) -> EnvState:
+        """The E key's masked reset of the selected env, on the device."""
+        if self.reset_request is None:
+            return state
+        state = masked_reset(self.env, state, self.reset_request)
+        self.logger.info(f"Viewer: reset env {self.reset_request}")
+        self.resets.append(self.reset_request)
+        self.reset_request = None
+        return state
+
+    def after_step(self, state: EnvState, games: int) -> None:
+        """Draw the step's frame (the viewer's selected env, else env 0) and
+        hand it to the recorder and the stream."""
+        env, ph, force = self.env, state.physics, state.body_contact_force
+        if self.viewer is not None:
+            frame = self.viewer.render_env(env.comps.engine, ph, env._spawn, force, self.has_box)
+        else:
+            frame = env_rows(env.comps.engine, ph, env._spawn, force, 0).render(
+                self.renderer, f"games {games}", has_box=self.has_box, box2_size=self.box2_size)
+            if self.streamer is not None:
+                self.streamer.add_frame(frame)
+        if self.recorder is not None:
+            self.recorder.add_frame(frame)
+        self.frames += 1
+
+    def summary(self) -> Dict[str, Any]:
+        out = {"frames": self.frames, "resets": list(self.resets),
+               "random_actions": self.random_actions}
+        if self.viewer is not None:
+            out.update(selected_env=self.viewer.selected_env,
+                       view_mode=self.viewer.view_mode_idx)
+        if self.streamer is not None:
+            out["stream"] = self.streamer.stats()
+        return out
+
+    def close(self) -> None:
+        if self.viewer is not None:
+            self.viewer.close()
+        if self.recorder is not None:
+            self.recorder.stop_episode()
+            self.recorder.close()
+        if self.streamer is not None:
+            self.streamer.stop()
+
+
 def run_test(s: CliRun) -> int:
     """Deterministic evaluation for testGamesNum episodes (0 = until
-    interrupted) at difficulty 1.0, with checkpoint hot-reload."""
+    interrupted) at difficulty 1.0, with checkpoint hot-reload and, where
+    configured, the graphics sidecar. Logs the termination reasons' rates
+    per episode; `s.stats` gets the counts."""
     cfg, env, learner, logger = s.cfg, s.env, s.learner, s.logger
     games_target = int(get_by_path(cfg, "train.testGamesNum", 100))
     reload_interval = float(get_by_path(cfg, "train.reloadInterval", 30))
@@ -420,6 +535,9 @@ def run_test(s: CliRun) -> int:
 
         monitor = HotReloadMonitor(path, on_reload, reload_interval)
         monitor.start()
+    sidecar = (Sidecar(cfg, env, s.run_dir, logger) if any(
+        get_by_path(cfg, k, False) for k in ("env.videoRecord", "env.videoStream", "env.viewer"))
+        else None)
     # evaluation runs the full reset distribution, whatever the curriculum's
     # initial difficulty
     if env.comps.initial_difficulty != 1.0:
@@ -429,10 +547,26 @@ def run_test(s: CliRun) -> int:
     games, returns = 0, []
     ep_ret = np.zeros(env.num_envs)
     succ = fail = tout = 0
+    # each terminal attributed to the criteria that fired in its episode
+    reason_counts: Dict[str, int] = {}
     try:
         while games_target == 0 or games < games_target:
-            actions = learner.act_deterministic(ppo_box["state"], obs)
+            t_frame = time.time()
+            if sidecar is not None:
+                env_state = sidecar.before_step(env_state)
+            if sidecar is not None and sidecar.random_actions:
+                actions = torch.rand(env.num_envs, env.num_actions, generator=env.generator,
+                                     device=env.device) * 2 - 1
+            else:
+                actions = learner.act_deterministic(ppo_box["state"], obs)
             env_state, obs, rew, done, extras = env.step_fn(env_state, actions)
+            if sidecar is not None:
+                sidecar.after_step(env_state, games)
+                if sidecar.viewer is not None:
+                    # real-time pacing to control_dt
+                    lag = env.control_dt - (time.time() - t_frame)
+                    if lag > 0:
+                        time.sleep(lag)
             ep_ret += rew.cpu().numpy()
             done_h = done.cpu().numpy()
             if done_h.any():
@@ -443,6 +577,10 @@ def run_test(s: CliRun) -> int:
                 succ += int(extras["success"].cpu().numpy()[idx].sum())
                 fail += int(extras["failure"].cpu().numpy()[idx].sum())
                 tout += int(extras["timeout"].cpu().numpy()[idx].sum())
+                for k, v in extras.items():
+                    if k.startswith(("success_reason_", "failure_reason_")):
+                        reason_counts[k] = reason_counts.get(k, 0) + int(
+                            v.cpu().numpy()[idx].sum())
                 logger.info(f"games {games}/{games_target or 'inf'} avg return "
                             f"{np.mean(returns):.2f} success {succ} failure {fail} "
                             f"timeout {tout}")
@@ -451,11 +589,21 @@ def run_test(s: CliRun) -> int:
     finally:
         if monitor:
             monitor.stop()
+        summary = None
+        if sidecar is not None:
+            summary = sidecar.summary()
+            sidecar.close()
     if returns:
         logger.info(f"Evaluation: {len(returns)} episodes, avg return {np.mean(returns):.3f}, "
                     f"success rate {succ / max(1, len(returns)):.3f}")
+        if reason_counts:
+            n_ep = max(1, len(returns))
+            split = ", ".join(f"{k.replace('_reason_', ':')} {v / n_ep:.3f}"
+                              for k, v in sorted(reason_counts.items()) if v)
+            logger.info(f"Termination reasons: {split or 'none fired'}")
     s.stats.append({"episodes": len(returns), "success": succ, "failure": fail,
-                    "timeout": tout})
+                    "timeout": tout, "reasons": reason_counts,
+                    **({"sidecar": summary} if summary is not None else {})})
     return 0
 
 

@@ -10,7 +10,9 @@ package's `shard_map` learner, on the CPU over gloo.
 - the batch moments (global count) and the advantage normalization on 4
   ranks against JAX under `shard_map` (atol 1e-6);
 - the consecutive-successes counter counts a success on any rank (JAX's
-  `pmax`), on the unfused and the plain fused step;
+  `pmax`), on the unfused and the plain fused step; the unfused step's
+  termination rates and criterion means are averaged over the ranks
+  (JAX's `pmean`);
 - world size 1 against no group, bit for bit (2 iterations of the plain
   fused step);
 - 2 ranks x 4 envs through the CLI's training: params equal after each
@@ -316,8 +318,16 @@ def test_consecutive_successes_count_any_rank(two_ranks, step):
 
 
 def test_scalar_extras_agree_across_ranks(two_ranks):
+    """The unfused step's scalar extras are global: the float ones (the
+    termination rates and criterion means) averaged over the ranks, as JAX
+    pmeans them; the consecutive counter by its max."""
     r0, r1 = (g["consecutive"]["scalars"] for g in two_ranks["got"])
-    assert r0 == r1 and all(set(s) == {"consecutive_successes"} for s in r0)
+    assert r0 == r1
+    for s, (p0, p1) in zip(r0, PATTERN):
+        assert {"consecutive_successes", "success_rate", "failure_rate", "timeout_rate",
+                "success_grasp_lift_success", "failure_hitting_ground"} <= set(s)
+        # the pattern's success in env 0 of 2 per rank
+        assert s["success_rate"] == (p0 + p1) / 4
 
 
 def test_two_ranks_only_rank0_writes(two_ranks):

@@ -10,7 +10,9 @@
 (b) `reset_fn` and three `step_fn` steps against the JAX `env.step_fn`, both
     from the port's own reset and from the JAX state carried over by
     convert.py, with the JAX step's reset samples (a light config: 2
-    substeps per step, episodeLength 3 so an auto-reset fires).
+    substeps per step, episodeLength 3 so an auto-reset fires); every
+    extra too: the termination rates and criterion means within 1e-6,
+    the masks and the reason flags exactly.
 (c) The packed fused layout against the JAX package's.
 (d) The unfused step with `sim.coriolis=true` (the port's Coriolis control
     step, the SPD solve K3's path) against the JAX `env.step_fn`, with the
@@ -105,7 +107,8 @@ def _jax_rollout(config, coriolis=False):
         task.reset_task(k, n, env._default_dof, difficulty=d, project=False))
     state, obs = env._reset_jit(key)
     run = {"reset_sample": sample(task_key, diff), "reset_obs": np.asarray(obs),
-           "states": [], "samples": [], "obs": [], "rew": [], "done": [], "comps": []}
+           "states": [], "samples": [], "obs": [], "rew": [], "done": [], "comps": [],
+           "term": []}
     step = jax.jit(env.step_fn)
     for t in range(STEPS):
         _, reset_key, _ = jax.random.split(state.rng, 3)
@@ -116,6 +119,8 @@ def _jax_rollout(config, coriolis=False):
         run["rew"].append(np.asarray(rew))
         run["done"].append(np.asarray(done))
         run["comps"].append(jax.device_get(ex["reward_components"]))
+        run["term"].append({k: np.asarray(v) for k, v in ex.items()
+                            if k != "reward_components"})
     run["actions"] = actions
     run["layout"] = JaxLayout(run["states"][0])
     assert np.any(run["done"]), "the scenario must exercise an auto-reset"
@@ -132,7 +137,8 @@ def _roll(env, state, run):
     for t in range(STEPS):
         state, obs, rew, done, ex = env.step_fn(
             state, T(run["actions"][t]), samples=(convert.task_reset(run["samples"][t], "cpu"), None))
-        out.append((obs.numpy(), rew.numpy(), done.numpy(), ex["reward_components"]))
+        out.append((obs.numpy(), rew.numpy(), done.numpy(), ex["reward_components"],
+                    {k: v.numpy() for k, v in ex.items() if k != "reward_components"}))
     return out
 
 
@@ -150,7 +156,7 @@ def test_reset_obs_matches_jax(port_runs, jax_run):
 @pytest.mark.parametrize("start", ["own", "carried"])
 @pytest.mark.parametrize("t", range(STEPS))
 def test_step_fn_matches_jax(port_runs, jax_run, start, t):
-    obs, rew, done, comps = port_runs[start][t]
+    obs, rew, done, comps, _ = port_runs[start][t]
     np.testing.assert_array_equal(done, jax_run["done"][t])
     np.testing.assert_allclose(obs, jax_run["obs"][t], rtol=0, atol=2e-4)
     np.testing.assert_allclose(rew, jax_run["rew"][t], rtol=0, atol=1e-3)
@@ -158,6 +164,23 @@ def test_step_fn_matches_jax(port_runs, jax_run, start, t):
     for k, v in comps.items():
         np.testing.assert_allclose(v.numpy(), jax_run["comps"][t][k], rtol=0, atol=1e-3,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("start", ["own", "carried"])
+@pytest.mark.parametrize("t", range(STEPS))
+def test_step_fn_extras_match_jax(port_runs, jax_run, start, t):
+    """Every other extra of the step: the termination rates and criterion
+    means (atol 1e-6) and the masks, reason flags, counters (exact)."""
+    got, want = port_runs[start][t][4], jax_run["term"][t]
+    assert sorted(got) == sorted(want)
+    assert {"success_rate", "failure_rate", "timeout_rate", "success_grasp_lift_success",
+            "failure_reason_hitting_ground"} <= set(got)
+    for k, v in got.items():
+        if v.dtype.kind == "f":
+            assert v.shape == want[k].shape == (), k
+            np.testing.assert_allclose(v, want[k], rtol=0, atol=1e-6, err_msg=k)
+        else:
+            np.testing.assert_array_equal(v, want[k], err_msg=k)
 
 
 # ---------------------------------------------------------------- (c) layout
@@ -205,7 +228,7 @@ def coriolis_runs():
 @pytest.mark.parametrize("t", range(STEPS))
 def test_coriolis_step_fn_matches_jax(coriolis_runs, t):
     run, port = coriolis_runs
-    obs, rew, done, _ = port[t]
+    obs, rew, done, _, _ = port[t]
     np.testing.assert_array_equal(done, run["done"][t])
     np.testing.assert_allclose(obs, run["obs"][t], rtol=0, atol=2e-4)
     np.testing.assert_allclose(rew, run["rew"][t], rtol=0, atol=1e-3)

@@ -28,6 +28,7 @@ from dexrobot_isaac_tpu_torch.models.dexhand021 import HandModel
 from dexrobot_isaac_tpu_torch.models.dexhand021 import build_hand_model as torch_model
 from dexrobot_isaac_tpu_torch.ops import quat as tq
 from dexrobot_isaac_tpu_torch.utils import config as tcfg
+from tests.torch_parity import assert_visual_geoms_equal
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAML_DIR = os.path.join(REPO, "dexrobot_isaac_tpu", "cfg")
@@ -37,7 +38,9 @@ JSON_DIR = os.path.join(REPO, "dexrobot_isaac_tpu_torch", "cfg")
 def _assert_model_equal(a, b):
     for f in dataclasses.fields(HandModel):
         x, y = getattr(a, f.name), getattr(b, f.name)
-        if isinstance(x, list):
+        if f.name == "visual_geoms":
+            assert_visual_geoms_equal(x, y)
+        elif isinstance(x, list):
             assert x == y, f.name
         else:
             np.testing.assert_array_equal(np.asarray(x), np.asarray(y), err_msg=f.name)

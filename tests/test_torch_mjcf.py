@@ -50,7 +50,9 @@ def models(request):
 def test_loader_arrays_equal_jax(models, field):
     got, want = models
     g, w = getattr(got, field), getattr(want, field)
-    if isinstance(g, list):
+    if field == "visual_geoms":
+        tp.assert_visual_geoms_equal(g, w)
+    elif isinstance(g, list):
         assert g == list(w)
     else:
         assert g.dtype == np.asarray(w).dtype and g.shape == np.asarray(w).shape

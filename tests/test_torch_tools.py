@@ -2,12 +2,14 @@
 policy on the unfused step, terminations by criterion, task-state
 summaries) and `tools/dexhand_test.py` (the environment harness: the
 action-to-DOF checks, the sweep, `mode=contact`, `mode=rulebased` with a
-policy that controls nothing, the graphics options refused).
+policy that controls nothing, and each graphics option: `videoRecord`,
+`plot`, `live`).
 """
 
 import dataclasses
 import json
 import os
+import urllib.request
 
 import numpy as np
 import pytest
@@ -119,6 +121,32 @@ def test_harness_rule_based_mode():
 
 @pytest.mark.parametrize("option", ["videoRecord=true", "plot=true", "live=true",
                                     "env.videoRecord=true"])
-def test_harness_graphics_refused(option):
-    with pytest.raises(NotImplementedError, match="graphics"):
-        dexhand_test.main([option, "device=cpu"])
+def test_harness_graphics_option_runs(option, tmp_path, monkeypatch):
+    """Each graphics option of the sweep writes what it promises: the mp4,
+    the PNG, the live series (read through /data before the server stops).
+    The action-mapping checks before the sweep are held above."""
+    from dexrobot_isaac_tpu_torch.graphics.liveplot import LivePlotServer
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(dexhand_test, "verify_action_mapping", lambda *a, **k: [])
+    monkeypatch.setattr(dexhand_test, "verify_custom_rule_modes", lambda *a, **k: [])
+    stop, data = LivePlotServer.stop, {}
+
+    def stop_reading_data(srv):
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/data", timeout=5) as r:
+            data.update(json.loads(r.read()))
+        stop(srv)
+
+    monkeypatch.setattr(LivePlotServer, "stop", stop_reading_data)
+    assert dexhand_test.main([option, "device=cpu", "task=BaseTask", "steps=6",
+                              "sim.physics_steps_per_control=1"] + CHEAP) == 0
+    made = sorted(os.listdir(tmp_path))
+    if option == "plot=true":
+        assert made == ["dexhand_test_series.png"]
+        assert os.path.getsize(tmp_path / "dexhand_test_series.png") > 1000
+    elif option == "live=true":
+        assert made == [] and len(data["reward (env 0)"]) == 18 * 6
+        assert len(data["q[0] sweep DOF"]) == 6 and len(data["contacts (env 0)"]) == 18 * 6
+    else:
+        assert made == ["dexhand_test_videos"]
+        assert os.path.getsize(tmp_path / "dexhand_test_videos" / "episode_00001.mp4") > 1000

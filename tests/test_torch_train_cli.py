@@ -1,7 +1,8 @@
 """The port's CLI (`python -m dexrobot_isaac_tpu_torch.train`) end to end on
 the CPU: train -> checkpoints -> resume (curriculum difficulty restored) ->
 evaluate, the Coriolis path with the unfused step, the fused step's plain
-version, `train.profile`, and the refusals. Tiny shapes: BlindGrasping at 4 envs, one physics
+version, `train.profile`, and training with the graphics keys set (read
+only in evaluation). Tiny shapes: BlindGrasping at 4 envs, one physics
 substep per control step, a [32, 32] network, horizon 4.
 """
 
@@ -91,9 +92,13 @@ def test_fused_on_runs_the_plain_fused_step_on_cpu(runs_dir):
 
 @pytest.mark.parametrize("option", ["env.videoRecord=true", "env.viewer=true",
                                     "env.videoStream=true"])
-def test_unported_options_are_refused(runs_dir, option):
-    with pytest.raises(NotImplementedError):
-        cli.main(BASE_ARGS + [option])
+def test_graphics_options_train_without_the_sidecar(runs_dir, option):
+    """Training reads none of the graphics keys (JAX reads them only in
+    evaluation): it trains, and records and serves nothing."""
+    s = cli.build(load_config(BASE_ARGS + ["maxIterations=1", "env.stream.port=18470", option]))
+    assert cli.run_train(s) == 0
+    assert "videos" not in os.listdir(s.run_dir)
+    assert "latest.pt" in os.listdir(os.path.join(s.run_dir, "nn"))
 
 
 def test_profile_writes_a_trace(runs_dir):

@@ -120,7 +120,8 @@ def _consecutive(inp, group):
         succ = torch.zeros_like(info["success"])
         succ[0] = bool(inp["pattern"][step[0]][group.rank])
         step[0] += 1
-        return (done | succ, {**info, "success": succ}, *rest)
+        return (done | succ, {**info, "success": succ, "success_rate": succ.float().mean()},
+                *rest)
 
     term_mod.evaluate_termination = patterned
     try:

@@ -140,3 +140,13 @@ def assert_fused_equals_unfused(env, run, t=1):
     comps = torch.stack([ex["reward_components"][k] for k in fused.comp_names], 1)
     assert torch.equal(fex["reward_components_packed"], comps)
     return done
+
+
+def assert_visual_geoms_equal(got, want):
+    """Two `HandModel.visual_geoms` lists: the same kinds and bodies, and
+    their arrays and radii equal (atol 0)."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert (g[0], int(g[1]), len(g)) == (w[0], int(w[1]), len(w)), (g, w)
+        for a, b in zip(g[2:], w[2:]):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=g[0])
