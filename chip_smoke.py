@@ -120,7 +120,21 @@ failing the run when it fails:
            FK + copy to the host, rasterizing, JPEG and mp4v encoding;
            BoxStacking, 10 unfused steps through K2's two-box build, env
            0's frame holding pixels of the second box's colour.
-   dist    multi-process training (`dist_phase`): the CLI in subprocesses
+   tools   the measurement tools (`tools_phase`): the bench entry as a user
+           runs it (`python -m dexrobot_isaac_tpu_torch.bench 4096 48`, a
+           subprocess): its JSON line parses, value and median are
+           positive, f32_mfu and mfu in (0, 1], both paths timed and K1's
+           and K2's launches a warm-up chunk plus 5 windows; then in this
+           process the update anatomy at 4096 envs (JAX's ten configs and
+           the split of the baseline iteration, whose parts sum to within
+           10% of it), the train anatomy at 4096 envs with chunks 8 (K1's
+           launches counted), bench_kernel at 4096 and 8192 envs (K2),
+           K1's roofline at the bench's rate, measure_coriolis over a 0.1 s
+           sweep (each substep's solve through K3), and record_golden into
+           a temporary npz: the TPU golden's keys, shapes and dtypes,
+           replayed against it at the golden budgets. Their launches join
+           the kernels line (`launches_tools`).
+   dist   multi-process training (`dist_phase`): the CLI in subprocesses
            (`python3 chip_smoke.py --dist-worker ...`, each cut at
            DIST_TIMEOUT s) with torchrun's environment. (a) NCCL at world
            size 1: BlindGrasping, 4096 envs, 2 PPO iterations on K1, and the
@@ -165,8 +179,6 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 kb = None  # dexrobot_isaac_tpu_torch.utils.kernel_build, imported by main()
 GOLDEN = os.path.join(ROOT, "tests", "golden", "fused_blind_grasping.npz")
-H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
-H100_F32_PER_S = 67e12       # f32 outside the tensor cores, H100 SXM data sheet
 N_ENVS = 4096
 ROLLOUT_STEPS = 600
 # the single-box tasks' K1 builds; their paths run 320 fused steps (past
@@ -205,15 +217,6 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
-
-
-def bound(nbytes: float, flops: float):
-    tb, tf = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_F32_PER_S * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
-
-
-def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -978,6 +981,125 @@ def graphics_phase(dev, n, gen, cli, train_run, ckpt, card) -> dict:
     return counted
 
 
+TOOLS_BENCH_STEPS = 48   # the bench entry's steps per window in [tools]
+TOOLS_CORIOLIS_S = 0.1   # measure_coriolis's sweep in [tools], seconds
+UPDATE_PARTS_TOL = 0.10  # the update split's parts against its iteration
+
+
+def tools_phase(dev, n: int, card: str) -> dict:
+    """[tools]: the measurement tools on the card, each through its entry
+    point: the bench as a subprocess, the others in this process with their
+    output captured and logged. Returns {kernel build: launches} of the
+    phase (the bench subprocess's included)."""
+    import contextlib
+    import io
+    import subprocess
+    import tempfile
+
+    from dexrobot_isaac_tpu_torch.tools import (
+        bench_kernel,
+        bench_train_anatomy,
+        bench_update_anatomy,
+        measure_coriolis,
+        record_golden,
+        roofline,
+    )
+
+    t_phase = time.perf_counter()
+    counted = {k: 0 for k in kb.LAUNCHES}
+    # ---- the bench entry, as a user runs it
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "dexrobot_isaac_tpu_torch.bench", str(n),
+                           str(TOOLS_BENCH_STEPS), *(["device=cpu"] if dev.type == "cpu" else [])],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    for ln in proc.stderr.strip().splitlines()[-20:]:
+        log(f"[tools] bench stderr: {ln}")
+    check(proc.returncode == 0, f"the bench entry exited {proc.returncode}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"[tools] bench: {json.dumps(line)} ({time.perf_counter() - t0:.1f} s)")
+    keys = ("metric", "value", "unit", "vs_baseline", "median_of_5", "flops_per_env_step",
+            "achieved_flops_per_s", "mfu", "f32_mfu")
+    check(all(k in line for k in keys) and line["value"] > 0 and line["median_of_5"] > 0
+          and 0 < line["f32_mfu"] <= 1 and 0 < line["mfu"] <= 1,
+          f"the bench's line lacks a key or holds an impossible number: {line}")
+    paths = next(ln for ln in proc.stderr.splitlines() if ln.startswith("paths"))
+    bench_launches = json.loads(next(ln for ln in proc.stderr.splitlines()
+                                     if ln.startswith("launches")).split(": ", 1)[1])
+    steps = 16 + 5 * TOOLS_BENCH_STEPS  # a warm-up chunk and 5 windows
+    check(" fused=" in paths and " unfused=" in paths
+          and bench_launches.get("fused_step") == steps
+          and bench_launches.get("control_step") == steps,
+          f"the bench did not time both paths through K1 and K2: {paths}; {bench_launches}")
+    for k, v in bench_launches.items():
+        counted[k] += v
+
+    def tool(name, fn, *a, **kw):
+        before = dict(kb.LAUNCHES)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = fn(*a, **kw)
+        torch.cuda.synchronize()
+        used = {k: v - before[k] for k, v in kb.LAUNCHES.items() if v > before[k]}
+        for ln in buf.getvalue().splitlines():
+            log(f"[tools] {name}: {ln}")
+        log(f"[tools] {name}: {time.perf_counter() - t0:.1f} s, launches {used}")
+        for k, v in used.items():
+            counted[k] += v
+        return res, used, buf.getvalue()
+
+    # ---- the update anatomy: every config, and the split of the baseline
+    upd, _, text = tool("update anatomy", bench_update_anatomy.run, n, dev)
+    parts = upd["split"]
+    summed = sum(parts[p] for p, _ in bench_update_anatomy.PARTS)
+    check(all(f"{tag:42s}:" in text for tag, _ in bench_update_anatomy.CONFIGS)
+          and all(ms > 0 and np.isfinite(kl) for ms, kl in upd["configs"].values()),
+          f"the update anatomy missed a config or went non-finite: {upd['configs']}")
+    check(abs(summed - parts["iteration"]) <= UPDATE_PARTS_TOL * parts["iteration"],
+          f"the update's parts sum to {summed:.2f} ms of a {parts['iteration']:.2f} ms iteration")
+    # ---- the training anatomy on K1, one chunk depth
+    tr, tr_used, text = tool("train anatomy", bench_train_anatomy.run, n, ("permutation",), (8,),
+                             dev)
+    horizon = 16
+    k1_expected = horizon * (3 * (1 + 5) + (1 + 3) * 8)
+    check(len(tr) == 4 and all(v > 0 for v in tr.values())
+          and tr_used.get("fused_step") == k1_expected,
+          f"the train anatomy missed a line or K1 ({k1_expected} launches): {tr}, {tr_used}")
+    # ---- K2 alone at two widths
+    kern, kern_used, _ = tool("bench_kernel", bench_kernel.run, (n, 2 * n), 50, dev)
+    check(len(kern) == 2 and kern_used.get("control_step", 0) >= 2 * 51
+          and all(k["value"] > 0 and (k["device_ms_per_launch"] or 0) > 0 for k in kern),
+          f"bench_kernel missed K2: {kern}, {kern_used}")
+    # ---- K1's roofline at the bench's rate
+    roof, _, _ = tool("roofline", roofline.run, n, line["value"], dev, line["flops_per_env_step"])
+    check(0 < roof["hbm_share"] < 1 and 0 < roof["f32_share"] <= 1
+          and 0 < roof["k1_f32_share"] <= 1, f"the roofline's shares are impossible: {roof}")
+    # ---- the Coriolis measurement through K3
+    cor, cor_used, _ = tool("measure_coriolis", measure_coriolis.run, TOOLS_CORIOLIS_S, dev)
+    n_solves = round(TOOLS_CORIOLIS_S / 0.005) * 3 * 4  # 3 physics steps per step, 4 substeps
+    check(cor_used.get("spd_solve") == n_solves and all(
+        np.isfinite(list(r.values())).all() and r["dqd_max"] > 0 for r in cor.values()),
+        f"measure_coriolis missed K3 ({n_solves} solves) or went non-finite: {cor}, {cor_used}")
+    # ---- the golden scenario recorded from K1, replayed against the TPU's
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "k1_golden.npz")
+        _, rec_used, _ = tool("record_golden", record_golden.write, path, dev)
+        rec = dict(np.load(path))
+    golden = dict(np.load(GOLDEN))
+    same = all(rec[k].shape == golden[k].shape and rec[k].dtype == golden[k].dtype
+               for k in golden) and sorted(rec) == sorted(golden)
+    err = record_golden.golden_errors(rec)
+    log(f"[tools] record_golden: keys, shapes and dtypes as the TPU golden's {same}; against it "
+        f"done equal {err['done']}, max abs err obs {err['obs']:.3e} (atol 2e-4) rew "
+        f"{err['rew']:.3e} (atol 1e-3) comp {err['comp']:.3e} (atol 1e-3)")
+    check(same and err["done"] and all(err[k] <= b for k, b in record_golden.BUDGETS.items())
+          and rec_used.get("fused_step") == record_golden.STEPS,
+          "record_golden's npz from K1 misses the TPU golden")
+    log(f"[tools] phase {time.perf_counter() - t_phase:.1f} s, launches "
+        f"{ {k: v for k, v in counted.items() if v} } ({card})")
+    return {k: v for k, v in counted.items() if v}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -990,6 +1112,7 @@ def main() -> int:
     from dexrobot_isaac_tpu_torch.physics import lane_step
     from dexrobot_isaac_tpu_torch.physics.engine import HandPhysics
     from dexrobot_isaac_tpu_torch.physics.types import box_rows
+    from dexrobot_isaac_tpu_torch.tools.roofline import bound, nbytes
     from dexrobot_isaac_tpu_torch.utils import kernel_build
     from dexrobot_isaac_tpu_torch.utils.config import load_config
 
@@ -1389,6 +1512,9 @@ def main() -> int:
     # ---------------------------------------------------------------- graphics
     graphics = graphics_phase(dev, N_ENVS, gen, cli, train_run, ckpt, card)
 
+    # ---------------------------------------------------------------- tools
+    tools = tools_phase(dev, N_ENVS, card)
+
     # ---------------------------------------------------------------- dist
     dist_launches = dist_phase(N_ENVS)
 
@@ -1517,6 +1643,8 @@ def main() -> int:
     launches["spd_solve"] = co_launches["spd_solve"]
     for name, count in graphics.items():  # [graphics]'s evaluation runs
         launches[name] += count
+    for name, count in tools.items():  # [tools]'s runs
+        launches[name] += count
     k3_bound = bound(b_k3, f_k3)[0]
     log(f"[numbers] spd_solve at {N_ENVS} systems: warm {k3_ms:.5f} ms/launch (queued; paced by "
         f"the host's launches {k3_paced_ms:.5f}), cold {k3_cold_ms:.5f} ms/launch = "
@@ -1552,7 +1680,8 @@ def main() -> int:
                         "paced_ms": paced, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                         "library_ms": lib_ms, "timing": timing,
                         **({"launches_dist": dist_launches} if name == "fused_step" else {}),
-                        **({"launches_graphics": graphics[name]} if name in graphics else {})})
+                        **({"launches_graphics": graphics[name]} if name in graphics else {}),
+                        **({"launches_tools": tools[name]} if name in tools else {})})
         log(f"[numbers] {name}: {ms:.5f} ms/launch (paced by the host {paced:.5f}), plain "
             f"{pms:.4f} ms, bound {bms:.5f} ms ({by}), library "
             f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, launches {launches[name]}")

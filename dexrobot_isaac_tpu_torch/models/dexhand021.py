@@ -26,6 +26,7 @@ import numpy as np
 
 from dexrobot_isaac_tpu_torch.constants import (
     BASE_JOINT_NAMES,
+    DOF_NAMES,
     FINGER_JOINT_NAMES,
     FINGERPAD_BODY_NAMES,
     FINGERTIP_BODY_NAMES,
@@ -120,11 +121,19 @@ class HandModel:
     def num_bodies(self) -> int:
         return len(self.body_names)
 
+    @property
+    def num_sites(self) -> int:
+        return len(self.site_names)
+
     def body_index(self, name: str) -> int:
         return self.body_names.index(name)
 
     def site_index(self, name: str) -> int:
         return self.site_names.index(name)
+
+    @property
+    def dof_names(self) -> List[str]:
+        return list(DOF_NAMES)
 
 
 # Finger layout at q=0, in world coordinates relative to the hand base origin.

@@ -218,9 +218,24 @@ def sphere_finger_ids(model: HandModel) -> np.ndarray:
     return fid_body[np.asarray(model.sphere_body)]
 
 
+_PAIRS_CACHE: dict = {}
+
+
 def compute_self_collision_pairs(
     model: HandModel, margin: float = 0.004
 ) -> np.ndarray:
+    """`_probe_self_collision_pairs`, once per model and margin in a process
+    (a few seconds of numpy FK probes; every env of the same hand reuses
+    them)."""
+    key = (margin,) + tuple(np.ascontiguousarray(getattr(model, f)).tobytes() for f in (
+        "parent", "joint_type", "axis", "attach_pos", "attach_quat", "post_quat",
+        "lower_limit", "upper_limit", "sphere_body", "sphere_pos", "sphere_radius"))
+    if key not in _PAIRS_CACHE:
+        _PAIRS_CACHE[key] = _probe_self_collision_pairs(model, margin)
+    return _PAIRS_CACHE[key].copy()
+
+
+def _probe_self_collision_pairs(model: HandModel, margin: float) -> np.ndarray:
     """Static broadphase at model-build time: the (P, 2) sphere pairs that can
     geometrically collide, found by probing joint-limit extremes with numpy FK.
 

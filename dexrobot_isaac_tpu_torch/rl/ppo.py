@@ -396,18 +396,16 @@ class PPOLearner:
             return (k * ar + c) & (n - 1)
         return self._randperm(n)
 
-    @torch.no_grad()
-    def train_iteration(self, ppo: PPOState, env_state, obs):
-        """One PPO epoch: rollout + GAE + minibatch updates + adaptive LR.
-        Returns (ppo, env_state, obs, metrics, rollout extras)."""
+    def _advantages(self, ppo: PPOState, traj: Transition, obs):
+        """GAE over the rollout, bootstrapped by the value of `obs`, the
+        observation after its last step: (advantages, returns)."""
+        return self._gae(ppo, traj, self._forward(ppo.params, ppo.obs_rms, obs)[2])
+
+    def _moments(self, ppo: PPOState, traj: Transition, advantages, returns):
+        """The running stats updated with this rollout's moments (they take
+        effect next iteration: the minibatches see the normalizer the rollout
+        used), the normalized returns and the normalized advantages."""
         cfg = self.cfg
-        m0 = self._mark()
-        env_state, obs, traj, roll_extras = self._rollout(ppo, env_state, obs)
-        m1 = self._mark()
-        last_value = self._forward(ppo.params, ppo.obs_rms, obs)[2]
-        advantages, returns = self._gae(ppo, traj, last_value)
-        # running stats update from this rollout but take effect next
-        # iteration: the minibatches see the normalizer the rollout used
         obs_rms, value_rms = ppo.obs_rms, ppo.value_rms
         new_obs_rms = (obs_rms.update_with_moments(*self._batch_moments(
             traj.obs.reshape(-1, cfg.obs_width))) if cfg.normalize_input else obs_rms)
@@ -417,6 +415,36 @@ class PPOLearner:
                         else returns)
         if cfg.normalize_advantage:
             advantages = self._normalize_advantages(advantages)
+        return new_obs_rms, new_value_rms, returns_norm, advantages
+
+    def _presort(self, data, local_batch: int):
+        """`rotation` and `perm_roll`: one permutation of the flat batch per
+        iteration (the static one, or a drawn one), then a cheap roll per
+        epoch; the other shuffles keep the batch's order here."""
+        if self.cfg.shuffle not in ("rotation", "perm_roll"):
+            return data
+        sp = (self._randperm(local_batch) if self.cfg.shuffle == "perm_roll"
+              else torch.as_tensor(self._static_perm(local_batch), device=self.device))
+        return [x[sp] for x in data]
+
+    def _minibatches(self, data, local_batch: int, n_mb: int, local_mb: int):
+        """One epoch's reindexing of the flat batch, as (n_mb, local_mb, ...)
+        minibatches."""
+        idx = self._epoch_index(local_batch)
+        return [x[idx].reshape((n_mb, local_mb) + x.shape[1:]) for x in data]
+
+    @torch.no_grad()
+    def train_iteration(self, ppo: PPOState, env_state, obs):
+        """One PPO epoch: rollout + GAE + minibatch updates + adaptive LR.
+        Returns (ppo, env_state, obs, metrics, rollout extras)."""
+        cfg = self.cfg
+        m0 = self._mark()
+        env_state, obs, traj, roll_extras = self._rollout(ppo, env_state, obs)
+        m1 = self._mark()
+        advantages, returns = self._advantages(ppo, traj, obs)
+        new_obs_rms, new_value_rms, returns_norm, advantages = self._moments(
+            ppo, traj, advantages, returns)
+        obs_rms, value_rms = ppo.obs_rms, ppo.value_rms
 
         flat = lambda x: x.reshape((-1,) + x.shape[2:])
         data = [flat(traj.obs), flat(traj.action), flat(traj.log_prob), flat(traj.value),
@@ -424,17 +452,12 @@ class PPOLearner:
         local_batch = data[0].shape[0]
         n_mb = max(1, cfg.batch_size // cfg.minibatch)
         local_mb = local_batch // n_mb
-        if cfg.shuffle in ("rotation", "perm_roll"):
-            # one permutation per iteration, then a cheap roll per epoch
-            sp = (self._randperm(local_batch) if cfg.shuffle == "perm_roll"
-                  else torch.as_tensor(self._static_perm(local_batch), device=self.device))
-            data = [x[sp] for x in data]
+        data = self._presort(data, local_batch)
 
         params, opt_state, lr = ppo.params, ppo.opt_state, ppo.lr
         kl = torch.zeros((), device=self.device)
         for _ in range(cfg.mini_epochs):
-            idx = self._epoch_index(local_batch)
-            mb_data = [x[idx].reshape((n_mb, local_mb) + x.shape[1:]) for x in data]
+            mb_data = self._minibatches(data, local_batch, n_mb, local_mb)
             carry = (params, opt_state, lr, obs_rms, value_rms, torch.zeros((), device=self.device))
             for j in range(n_mb):
                 carry, _ = self._update_minibatch(carry, [x[j] for x in mb_data])

@@ -119,6 +119,25 @@ def load(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
+def host_library(name: str) -> ctypes.CDLL:
+    """The build `name` compiled for the host by g++ (the `.cu` files also
+    compile as C++, their per-env code `__device__` only under nvcc), for
+    the record layouts it exports where no card is: a tool's `device=cpu`
+    run reads K1's records from it. Unoptimized; it launches nothing."""
+    key = f"{name}-host"
+    if key not in _libs:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        path = lib_path(name)[:-3] + "-host.so"
+        if not os.path.exists(path):
+            tmp = f"{path}.{os.getpid()}.tmp"
+            subprocess.run(["g++", "-x", "c++", "-O0", "-std=c++17", "-shared", "-fPIC",
+                            *BUILDS[name][1], "-o", tmp,
+                            os.path.join(CSRC, BUILDS[name][0] + ".cu")], check=True)
+            os.replace(tmp, path)
+        _libs[key] = ctypes.CDLL(path)
+    return _libs[key]
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
