@@ -11,8 +11,9 @@ failing the run when it fails:
            for sm_90a (one nvcc per build, started together); print the
            build seconds and the ptxas register/spill report, each kernel's
            shared bytes per block and resident blocks (envs, or K3's
-           systems) per SM (the one-box builds must keep 32 envs per SM),
-           and the card's name and power limit.
+           systems) per SM (every K1 and K2 build, the two-box builds
+           included, must hold 32 envs per SM), and the card's name and
+           power limit.
 2. golden  replay tests/golden/fused_blind_grasping.npz (recorded from the
            TPU kernel) through the CUDA fused kernel K1 with the JAX-sampled
            operands of dexrobot_isaac_tpu_torch/data/golden_operands.npz;
@@ -152,10 +153,10 @@ failing the run when it fails:
 9. numbers env-steps/s of the 600-step rollout and each kernel's ms per
            launch, device time with its launches queued behind a sleeping
            kernel so that the host's launch overhead stays out
-           (kernel_build.device_ms; every build on its phase's inputs; K1
-           also at 8192 envs, the README
-           recipe's width; K3 warm, the phase-5 systems back to back in L2,
-           and cold, rotating over 12 copies of them, twice the L2), and
+           (kernel_build.device_ms; every build on its phase's inputs; K1's
+           BlindGrasping and BoxStacking builds also at 8192 envs, the
+           README recipe's width, their phase inputs twice; K3 warm, the
+           phase-5 systems back to back in L2, and cold, rotating over 12 copies of them, twice the L2), and
            again with the host pacing the launches (CUDA events around the
            calls, as the plain versions and library calls are timed),
            beside its plain version's ms, its bound on the card (bytes or
@@ -249,50 +250,20 @@ def occupancy(kb, lane_step) -> dict:
     return out
 
 
-def stacked_scene(env, state, gen):
-    """The BoxStacking state of phase [box2]: after plain steps of random
-    actions, a quarter of the envs get the pick cube resting on the
-    platform (offset, yawed, pushed; slightly interpenetrating) and a quarter
-    get it dropped onto it, so that cube-cube, platform-ground and hand
-    contacts are all active (tests/test_pallas_step.py,
-    tests/test_physics_multibody.py)."""
-    ph = dataclasses.replace(state.physics)
-    n, dev = ph.q.shape[0], ph.q.device
-    t = env.comps.task
-    top = t.plat_size + t.box_size / 2.0
-    rest, drop = torch.arange(n, device=dev) % 4 == 0, torch.arange(n, device=dev) % 4 == 1
-    off = (torch.rand(n, 2, generator=gen, device=dev) * 2 - 1) * 0.01
-    pos = torch.cat([ph.box2_pos[:, :2] + off, ph.box2_pos[:, 2:3] * 0 + top - 0.0015], 1)
-    yaw = (torch.rand(n, generator=gen, device=dev) * 2 - 1) * 0.3
-    z = torch.zeros_like(yaw)
-    quat = torch.stack([z, z, torch.sin(yaw / 2), torch.cos(yaw / 2)], 1)
-    push = torch.tensor([0.05, -0.02, 0.0], device=dev).expand(n, 3)
-    fall = torch.tensor([0.0, 0.0, -0.5], device=dev).expand(n, 3)
-    sel = lambda m, a, b: torch.where(m[:, None], a, b)
-    on = rest | drop
-    ph.box_pos = sel(on, pos + sel(drop, torch.tensor([0.0, 0.0, 0.012], device=dev).expand(n, 3),
-                                   torch.zeros_like(pos)), ph.box_pos)
-    ph.box_quat = sel(on, quat, ph.box_quat)
-    ph.box_linvel = sel(rest, push, sel(drop, fall, ph.box_linvel))
-    ph.box_angvel = sel(on, torch.zeros_like(ph.box_angvel), ph.box_angvel)
-    return ph
+def device_ms_twice(kernel, fs, ins) -> float:
+    """K1's device ms per launch (`kb.device_ms`) on twice the envs: the fused
+    state's columns and the operands `ins` side by side, the state rows
+    restored before each launch (K1 writes them in place)."""
+    w2 = lambda x: torch.cat([x, x], 1).contiguous()
+    rf0, ri0 = w2(fs.rows_f), w2(fs.rows_i)
+    rf, ri, ins2 = rf0.clone(), ri0.clone(), [w2(x) for x in ins]
 
+    def run():
+        rf.copy_(rf0)
+        ri.copy_(ri0)
+        return kernel(rf, ri, *ins2)
 
-def contact_counts(engine, ph, dr):
-    """Envs with cube-cube contact and with the platform on the ground (the
-    plain engine's narrowphase on this state)."""
-    p = engine.params
-    box = (ph.box_pos, ph.box_quat, ph.box_linvel, ph.box_angvel)
-    box2 = (ph.box2_pos, ph.box2_quat, ph.box2_linvel, ph.box2_angvel)
-    bm, bi = p.box_mass * dr.box_mass_scale, engine.box_inertia * dr.box_mass_scale
-    b2m, b2i = p.box2_mass * dr.box_mass_scale, engine.box2_inertia * dr.box_mass_scale
-    mu = torch.ones_like(bm)[:, None]  # per env, over the corners
-    fa, _, _, _ = engine._box_box(box, box2, p.box_size / 2.0, bm, bi, p.box2_size / 2.0, b2m,
-                                  b2i, mu)
-    g_kick = torch.tensor([0.0, 0.0, p.gravity * engine.substep_dt], device=bm.device)
-    fg, _ = engine._box_ground(box2, p.box2_size / 2.0, b2m, b2i, mu, g_kick)
-    nz = lambda f: int((f.abs().sum(1) > 0).sum())
-    return nz(fa), nz(fg)
+    return kb.device_ms(run, 10)
 
 
 def envs_off(out_a, rf_a, ri_a, out_b, rf_b, ri_b):
@@ -1115,6 +1086,7 @@ def main() -> int:
     from dexrobot_isaac_tpu_torch.tools.roofline import bound, nbytes
     from dexrobot_isaac_tpu_torch.utils import kernel_build
     from dexrobot_isaac_tpu_torch.utils.config import load_config
+    from dexrobot_isaac_tpu_torch.utils.lane_probe import contact_counts, stacked_scene
 
     global kb
     kb = kernel_build
@@ -1138,9 +1110,9 @@ def main() -> int:
         f"{k} {smem} B shared per block of {per} {unit(k)}, {blocks} blocks = {blocks * per} "
         f"{unit(k)} resident per SM" for k, (smem, blocks, per) in occ.items()))
     check(all(b >= 1 for _, b, _ in occ.values()), f"a kernel cannot be resident: {occ}")
-    one_box = ("fused_step", "control_step", "fused_step_base", *NEW_TASKS.values())
-    check(all(occ[k][1] * occ[k][2] == 32 for k in one_box),
-          f"a one-box build does not hold 32 envs per SM: {occ}")
+    lane_builds = [k for k in kb.BUILDS if k != "spd_solve"]
+    check(all(occ[k][1] * occ[k][2] == 32 for k in lane_builds),
+          f"a K1 or K2 build does not hold 32 envs per SM: {occ}")
 
     # ---------------------------------------------------------------- 2 golden
     golden = dict(np.load(GOLDEN))
@@ -1533,16 +1505,7 @@ def main() -> int:
     k1_ms = kb.device_ms(lambda: k1_on_phase4_inputs(fused.kernel), 20)
     k1_paced_ms = cuda_ms(lambda: k1_on_phase4_inputs(fused.kernel), 20)
     # K1 at the README recipe's width (numEnvs=8192): the phase-4 columns twice
-    w2 = lambda x: torch.cat([x, x], 1).contiguous()
-    rf8, ri8, rf8_0, ri8_0 = w2(fs_k1.rows_f), w2(fs_k1.rows_i), w2(fs_k1.rows_f), w2(fs_k1.rows_i)
-    ins8 = [w2(x) for x in (act_T, rst, drn, spw)]
-
-    def k1_8192():
-        rf8.copy_(rf8_0)
-        ri8.copy_(ri8_0)
-        return fused.kernel(rf8, ri8, *ins8)
-
-    k1_8192_ms = kb.device_ms(k1_8192, 10)
+    k1_8192_ms = device_ms_twice(fused.kernel, fs_k1, (act_T, rst, drn, spw))
     log(f"[numbers] K1 at {N_ENVS} envs {k1_ms:.4f} ms/launch, at {2 * N_ENVS} envs (the "
         f"README recipe's numEnvs) {k1_8192_ms:.4f} ms/launch, device time ({card})")
     k1_plain_ms = cuda_ms(lambda: k1_on_phase4_inputs(fused.kernel_plain), 1, 1)
@@ -1591,6 +1554,10 @@ def main() -> int:
             bytes=nbytes(rf_t, ri_t, *ins_t, *ko_t, rf_t, ri_t))
     rows2 = (T(ph_st.q), T(ph_st.qd), T(tgt_st), T(spawn), T(boxes(ph_st)),
              dr_st.rows().contiguous())
+    # K1's BoxStacking build at 8192 envs: its phase inputs twice
+    k1_st_8192_ms = device_ms_twice(fused_st.kernel, *k1_runs["stacking"][3])
+    log(f"[numbers] K1 fused_step_stacking at {N_ENVS} envs {k1_task['stacking']['ms']:.4f} "
+        f"ms/launch, at {2 * N_ENVS} envs {k1_st_8192_ms:.4f} ms/launch, device time ({card})")
     k2b_fn = lambda: lane_step.control_step_rows(c_st.engine, steps_st, *rows2)
     k2b_ms, k2b_paced_ms = kb.device_ms(k2b_fn, 20), cuda_ms(k2b_fn, 20)
     k2b_plain_ms = cuda_ms(lambda: plain_st(ph_st, tgt_st, spawn, dr_st), 1, 1)
@@ -1650,9 +1617,11 @@ def main() -> int:
         f"the host's launches {k3_paced_ms:.5f}), cold {k3_cold_ms:.5f} ms/launch = "
         f"{k3_cold_ms / k3_bound:.2f}x its byte bound of {k3_bound:.5f} ms ({card})")
     kernels = []
+    ms_8192 = {"fused_step": k1_8192_ms, "fused_step_stacking": k1_st_8192_ms}
     timing = ("ms: device time of launches queued behind a sleeping kernel "
-              "(kernel_build.device_ms); paced_ms, plain_ms, library_ms: CUDA events around "
-              "calls paced by the host")
+              "(kernel_build.device_ms); ms_8192: the same at 8192 envs (the phase inputs "
+              "twice); paced_ms, plain_ms, library_ms: CUDA events around calls paced by the "
+              "host")
     for name, src, rep, ms, paced, pms, err, (bms, by), lib_ms in (
         ("fused_step", "dexrobot_isaac_tpu_torch/csrc/fused_step.cu",
          "dexrobot_isaac_tpu/envs/fused_step.py:1080", k1_ms, k1_paced_ms, k1_plain_ms,
@@ -1680,6 +1649,7 @@ def main() -> int:
                         "paced_ms": paced, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                         "library_ms": lib_ms, "timing": timing,
                         **({"launches_dist": dist_launches} if name == "fused_step" else {}),
+                        **({"ms_8192": ms_8192[name]} if name in ms_8192 else {}),
                         **({"launches_graphics": graphics[name]} if name in graphics else {}),
                         **({"launches_tools": tools[name]} if name in tools else {})})
         log(f"[numbers] {name}: {ms:.5f} ms/launch (paced by the host {paced:.5f}), plain "

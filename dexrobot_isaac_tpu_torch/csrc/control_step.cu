@@ -14,9 +14,11 @@
 // ground/box, 40 pairs, CRBA, LTL), ~2e9 at 4096 envs, ~30 us at 67 TFLOP/s:
 // the FLOPs bound it. The two-cube build (-DLP_HAS_BOX2=1, its own library)
 // adds 13 box rows in and out and 3 box-force rows, and per substep 39
-// spheres vs the second box, its 8 corners and 16 cube-cube corners. The half-warp design is bound by its serial phases;
-// what hides their latency is the number of envs resident per SM (the
-// shared slot per env, LpEnv, and the registers per thread: 32 envs).
+// spheres vs the second box, its 8 corners and 16 cube-cube corners, in a
+// second contact pass over the first's words. The half-warp design is
+// bound by its serial phases; what hides their latency is the number of
+// envs resident per SM (the shared slot per env, LpEnv, and the registers
+// per thread: 32 envs in both builds).
 //
 // The rows x N layout (envs contiguous) is kept: the block stages its envs'
 // columns through shared memory, each row read and written by consecutive

@@ -41,10 +41,13 @@
 // ~5e5 f32 FLOPs/env (~2e9 at 4096 envs, ~30 us at 67 TFLOP/s), so the
 // FLOPs bound it; BoxStacking's second box adds to both. The half-warp
 // design is bound by the physics' serial phases, hidden by the envs
-// resident per SM; the staged column (~1 KB, FS_IN_CAP words sized per
-// build) makes K1's slot of shared memory larger than K2's, and lane 0's
-// part (the two envs of a warp run theirs side by side) works on shared
-// memory, not the thread's stack. Rows are staged in and out with
+// resident per SM: 32 in every build (4 blocks of 8), BoxStacking's too,
+// whose two-box contacts run as two passes over the LpEnv union (its slot
+// 7,116 B of the 7,168 an env may take). The staged column (~1 KB,
+// FS_IN_CAP words sized per build) makes K1's slot of shared memory larger
+// than K2's, and lane 0's part (the two envs of a warp run theirs side by
+// side) works on shared memory, not the thread's stack. Rows are staged in
+// and out with
 // consecutive threads on consecutive envs, so global accesses stay
 // coalesced in the rows x N layout.
 #ifdef __CUDACC__

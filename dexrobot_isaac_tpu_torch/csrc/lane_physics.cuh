@@ -18,21 +18,17 @@
 // envs per block. Each lane owns up to two of the 26 bodies (its slots,
 // LaneModel.slot_body: each tree level in one slot, so a level phase runs
 // one slot); lane 15 also owns the box, and in the two-cube build
-// (LP_HAS_BOX2, a separate library) lane 14 owns the second box. What another lane must read lives in
-// the env's slice of shared memory (LpEnv); what only the owner reads lives
-// in that lane's registers (LpLane). Each substep is a fixed sequence of
-// phases separated by __syncwarp(); within a phase a lane writes only
-// values no other lane reads in that phase.
+// (LP_HAS_BOX2, a separate library) lane 14 owns the second box. What
+// another lane must read lives in the env's slice of shared memory (LpEnv);
+// what only the owner reads lives in that lane's registers (LpLane). Each
+// substep is a fixed sequence of phases separated by __syncwarp(); within a
+// phase a lane writes only values no other lane reads in that phase.
 //   1. FK and velocity propagation, one phase per tree level (root first;
 //      the level is the body's depth - 1, LaneModel.depth, n_levels levels);
 //      every lane first takes sin/cos of its bodies' half angles.
 //   2. Sphere poses and velocities and the box-contact flags, lanes over the
 //      39 spheres; then the forces, lanes over spheres (ground + box), the
-//      40 finger pairs and the 8 box corners, each into its own slot. The
-//      two-cube build adds the second box's sphere flags and forces (its own
-//      share count), its 8 corners vs the ground, and the 2 x 8 cube-cube
-//      corners (each cube's corners against the other, flags first: each
-//      direction has its own share count), each into its own slot.
+//      40 finger pairs and the 8 box corners, each into its own slot.
 //   3. Each body sums its own contacts (LaneModel.bc: its spheres, then its
 //      pairs, then its spheres against the second box, in index order, as
 //      the lane kernel does), adds gravity and forms its CRBA terms; the box
@@ -40,6 +36,18 @@
 //      cube-cube terms) and integrates the box, the second box's lane the
 //      same for its box. Neither box is read by the other lane here: the
 //      cube-cube slots of phase 2 hold all either needs.
+//   The two-cube build runs 2 and 3 as two passes over the same contact
+//   words. Its flags (the first box's, the second box's and the 2 x 8
+//   cube-cube corners', each cube's corners against the other) are lane
+//   bitmasks (a ballot per 16 spheres), outside the union. Pass A is 2 as
+//   above, then each body sums its spheres and pairs into its wrench
+//   registers and cf, and the box lane the box's spheres and corners into
+//   LpEnv.bw. Pass B writes, over A's slots (sp, sv carry over): the
+//   spheres vs the second box (its own share count), its 8 corners vs the
+//   ground and the cube-cube corners (each direction its own share count);
+//   then each body adds its spheres against the second box to A's sums and
+//   goes on with 3, and both boxes integrate, the first box after adding
+//   the cube-cube terms to bw. Every sum keeps its order.
 //   4. Subtree sums of the wrenches and of T/K, one phase per level, deepest
 //      first; each body adds its children in descending index (the lane
 //      kernel's order: children after their own subtrees, i descending).
@@ -66,8 +74,13 @@
 // reads, shared loads, one rsqrt) must be hidden by the other resident
 // env-warps: 32 envs (16 warps) per SM, the limit of both shared memory
 // (LpEnv ~6 KB per env) and registers (<= 128 per thread), so 4096 envs run
-// in one wave on 132 SMs. The two-cube build's slot is larger (the second
-// box's contact slots): it holds fewer envs per SM (LP_MIN_BLOCKS 3).
+// in one wave on 132 SMs. The two-cube build holds the same 32: in one
+// contact buffer the second box's slots (39 sphere forces, its 39 + 8
+// wrenches, 16 cube-cube corners) would grow the union from 808 to 1,416
+// floats and K1's slot to 9,560 B, over the 7,168 B an env may take at 4
+// blocks of 8 per SM ((233,472 / 4 - 1,024) / 8); the two passes need 768
+// and 792 floats (the union 792, K1's slot ~7.1 KB), and each pass's
+// working registers are one box's.
 //
 // The file also compiles as plain C++ (no __CUDACC__): each phase is a
 // function run once per lane, and the host build loops over the lanes where
@@ -95,14 +108,9 @@
 #define LP_BOX2_LANE (LP_W - 2)  // the lane that also owns the second box
 #define LP_ENVS 8      // envs per block (4 warps)
 #define LP_THREADS (LP_ENVS * LP_W)
-// K1's and K2's blocks resident per SM, at least: 4 x 8 = 32 envs, which
-// caps the registers per thread at 65536 / (4 x 128) = 128; the two-cube
-// build 3 x 8 = 24 envs (170 registers)
-#if LP_HAS_BOX2
-#define LP_MIN_BLOCKS 3
-#else
+// K1's and K2's blocks resident per SM, at least, in every build: 4 x 8 =
+// 32 envs, which caps the registers per thread at 65536 / (4 x 128) = 128
 #define LP_MIN_BLOCKS 4
-#endif
 // the design's shared memory per env: an SM's 228 KB over LP_MIN_BLOCKS
 // blocks of LP_ENVS envs, less the 1 KB the card reserves per block
 #define LP_SHARED_BUDGET ((233472 / LP_MIN_BLOCKS - 1024) / LP_ENVS)
@@ -117,7 +125,7 @@
 #define LP_KIN 13      // per body: pos3 quat4 lin3 ang3
 #define LP_BOX_ROWS (LP_HAS_BOX2 ? 26 : 13)  // box state rows (pos3 quat4 lin3 ang3 per box)
 #define LP_BF_ROWS (LP_HAS_BOX2 ? 6 : 3)     // box contact-force rows
-#define LP_MAXS2 (LP_HAS_BOX2 ? LP_MAXS : 0)  // sphere-vs-second-box force slots
+#define LP_FLAG_WORDS ((LP_MAXS + LP_W - 1) / LP_W)  // the two-cube build's flag words per box
 #define LP_TRI (LP_MAXD * (LP_MAXD - 1) / 2)  // LTL updates per step, at most
 #define LP_TRI_ROUNDS 3  // LTL updates per lane held in registers at once
 
@@ -256,19 +264,27 @@ LP_DEV void lp_sub3(float* a, const float* b) { a[0] -= b[0]; a[1] -= b[1]; a[2]
 // Per substep, the contact phases (dead once each body has summed its own).
 struct LpContactBuf {
   float sp[LP_MAXS][3], sv[LP_MAXS][3];  // sphere world position, velocity
-  // hand-side force: spheres (ground + box), pairs, spheres vs the second box
-  float F[LP_MAXS + LP_MAXSC + LP_MAXS2][3];
+  // hand-side force: spheres (ground + box), pairs
+  float F[LP_MAXS + LP_MAXSC][3];
   float BW[LP_MAXS + 8][6];              // box-side force, torque: spheres, corners
+#if !LP_HAS_BOX2
   float act[LP_MAXS];                    // 1 where the sphere touches the box
+#endif
+};
+
 #if LP_HAS_BOX2
+// The two-cube build's second contact pass, over the words of the first
+// (LpContactBuf), whose sums are taken by then; sp and sv carry over.
+struct LpContactBuf2 {
+  float sp[LP_MAXS][3], sv[LP_MAXS][3];
+  float F2[LP_MAXS][3];       // hand-side force of each sphere vs the second box
   float BW2[LP_MAXS + 8][6];  // the second box's side: spheres, corners
   // cube-cube corner c (0-7: the box's corners in the second box, 8-15 the
   // second box's in the box): the force on the corner's cube, its torque
   // about that cube, and the force's torque about the other cube
   float BB[16][9];
-  float act2[LP_MAXS], actbb[16];  // the second box's sphere flags; the corners' flags
-#endif
 };
+#endif
 
 // Per substep, after the contact phases: the subtree sums, the sparse mass
 // matrix and the two triangular solves.
@@ -289,9 +305,16 @@ struct LpEnv {
   float Rb[9];                   // the box's rotation
 #if LP_HAS_BOX2
   float Rb2[9];                  // the second box's rotation
+  float bw[6];                   // the box's contact wrench of pass A: force, torque
+  // contact flags as lane bitmasks (bit l of word r: sphere 16 r + l): the
+  // spheres vs the box, vs the second box; the cube-cube corners
+  unsigned act[LP_FLAG_WORDS], act2[LP_FLAG_WORDS], actbb;
 #endif
   union {
     LpContactBuf c;
+#if LP_HAS_BOX2
+    LpContactBuf2 c2;
+#endif
     LpTreeBuf t;
   } u;  // also a kernel's output staging after the last substep
 };
@@ -346,6 +369,28 @@ static int lp_lane_reverse = 0;  // host build: run the lanes in reverse order
       __VA_ARGS__                                                           \
     }                                                                       \
   } while (0)
+#endif
+
+#if LP_HAS_BOX2
+// In a phase: `word` (bit l: lane l's `pred`) written by lane 0, a ballot of
+// the env's half-warp on the card; the host build ORs each lane in as it
+// runs (the first lane to run starts the word). LP_POPC counts its bits.
+#ifdef __CUDACC__
+#define LP_BALLOT(word, pred, mask)                                            \
+  do {                                                                         \
+    const unsigned lp_b = __ballot_sync(mask, pred) >> (threadIdx.x & LP_W);  \
+    if (lane == 0) (word) = lp_b & 0xffffu;                                    \
+  } while (0)
+#define LP_POPC(x) __popc(x)
+#else
+#define LP_BALLOT(word, pred, mask)                                            \
+  do {                                                                         \
+    const unsigned lp_b = (pred) ? 1u << lane : 0u;                            \
+    (void)(mask);                                                              \
+    (word) = lane == (lp_lane_reverse ? LP_W - 1 : 0) ? lp_b : (word) | lp_b;  \
+  } while (0)
+#define LP_POPC(x) __builtin_popcount(x)
+#endif
 #endif
 
 // ---------------------------------------------------------------- FK
@@ -645,6 +690,33 @@ LP_DEV void lp_box_rots(const LaneModel* m, LpEnv* s, int lane) {
 #endif
 }
 
+#if LP_HAS_BOX2
+// 2a (two-cube build). Sphere poses and velocities; the flags of both boxes'
+// sphere contacts, a ballot per round of 16 spheres (every lane takes part
+// in each), and of the 16 cube-cube corners (lane c: corner c).
+LP_DEV void lp_spheres_phase(const LaneModel* m, LpEnv* s, int lane, unsigned mask) {
+  LpContactBuf* cb = &s->u.c;
+  for (int r = 0; r * LP_W < m->ns; ++r) {
+    const int j = r * LP_W + lane;
+    bool on1 = false, on2 = false;
+    if (j < m->ns) {
+      const float* bk = s->kin[m->sb[j]];
+      float t[3], d[3];
+      lp_qrot(bk + 3, &m->spos[3 * j], t);
+      for (int c = 0; c < 3; ++c) cb->sp[j][c] = bk[c] + t[c];
+      for (int c = 0; c < 3; ++c) d[c] = cb->sp[j][c] - bk[c];
+      lp_cross(bk + 10, d, t);
+      for (int c = 0; c < 3; ++c) cb->sv[j][c] = bk[7 + c] + t[c];
+      LpBoxGeo g;
+      if (m->has_box) on1 = lp_box_geo(m->half, s->Rb, s->box, cb->sp[j], m->srad[j], &g) > 0.f;
+      on2 = lp_box_geo(m->half2, s->Rb2, s->box + 13, cb->sp[j], m->srad[j], &g) > 0.f;
+    }
+    LP_BALLOT(s->act[r], on1, mask);
+    LP_BALLOT(s->act2[r], on2, mask);
+  }
+  LP_BALLOT(s->actbb, lp_cube_corner(m, s, lane, 0.f, (float*)0) > 0.f, mask);
+}
+#else
 // 2a. Sphere poses and velocities; the box-contact flags.
 LP_DEV void lp_spheres_phase(const LaneModel* m, LpEnv* s, int lane) {
   LpContactBuf* cb = &s->u.c;
@@ -661,21 +733,12 @@ LP_DEV void lp_spheres_phase(const LaneModel* m, LpEnv* s, int lane) {
       float depth = lp_box_geo(m->half, s->Rb, s->box, cb->sp[j], m->srad[j], &g);
       cb->act[j] = depth > 0.f ? 1.f : 0.f;
     }
-#if LP_HAS_BOX2
-    LpBoxGeo g2;
-    float depth2 = lp_box_geo(m->half2, s->Rb2, s->box + 13, cb->sp[j], m->srad[j], &g2);
-    cb->act2[j] = depth2 > 0.f ? 1.f : 0.f;
-#endif
   }
-#if LP_HAS_BOX2
-  for (int c = lane; c < 16; c += LP_W)
-    cb->actbb[c] = lp_cube_corner(m, s, c, 0.f, (float*)0) > 0.f ? 1.f : 0.f;
-#endif
 }
+#endif
 
 // 2b. Contact forces: spheres vs ground and box, finger pairs, box corners
-// vs ground, each into its own slot; in the two-cube build also the spheres
-// vs the second box, its corners vs ground and the cube-cube corners.
+// vs ground, each into its own slot (the two-cube build's pass A).
 LP_DEV void lp_forces_phase(const LaneModel* m, LpEnv* s, int lane) {
   LpContactBuf* cb = &s->u.c;
   const float bm_s = s->drv[2], fr_s = s->drv[3];
@@ -685,16 +748,15 @@ LP_DEV void lp_forces_phase(const LaneModel* m, LpEnv* s, int lane) {
     inv_box_mass = 1.0f / (m->box_mass * bm_s);
     inv_box_in = 1.0f / (m->box_inertia * bm_s);
     float n_act = 0.f;
+#if LP_HAS_BOX2
+    int n_on = 0;
+    for (int r = 0; r * LP_W < m->ns; ++r) n_on += LP_POPC(s->act[r]);
+    n_act = (float)n_on;
+#else
     for (int j = 0; j < m->ns; ++j) n_act += cb->act[j];
+#endif
     share_bm = fmaxf(n_act, 1.0f) * inv_box_mass;
   }
-#if LP_HAS_BOX2
-  const float inv_box2_mass = 1.0f / (m->box2_mass * bm_s);
-  const float inv_box2_in = 1.0f / (m->box2_inertia * bm_s);
-  float n_act2 = 0.f;
-  for (int j = 0; j < m->ns; ++j) n_act2 += cb->act2[j];
-  const float share2_bm = fmaxf(n_act2, 1.0f) * inv_box2_mass;
-#endif
   for (int j = lane; j < m->ns; j += LP_W) {
     const float* sp = cb->sp[j];
     const float* sv = cb->sv[j];
@@ -755,10 +817,6 @@ LP_DEV void lp_forces_phase(const LaneModel* m, LpEnv* s, int lane) {
       lp_cross(r_c, bw, bw + 3);
     }
     for (int c = 0; c < 3; ++c) cb->F[j][c] = f[c];
-#if LP_HAS_BOX2
-    lp_sphere_box(m, s->Rb2, s->box + 13, m->half2, sp, sv, r, meff, share2_bm, inv_box2_in,
-                  m->mu_hb2 * fr_s, cb->F[m->ns + m->n_sc + j], cb->BW2[j]);
-#endif
   }
   // finger-finger self-collision over the pruned pairs: +f on sphere i at its
   // center, -f on sphere j
@@ -779,18 +837,65 @@ LP_DEV void lp_forces_phase(const LaneModel* m, LpEnv* s, int lane) {
   for (int c8 = lane; m->has_box && c8 < 8; c8 += LP_W)
     lp_corner_ground(m, s->Rb, s->box, m->half, c8, inv_box_mass, inv_box_in,
                      m->mu_bg * fr_s, cb->BW[m->ns + c8]);
+}
+
 #if LP_HAS_BOX2
-  // the second box's corners vs ground (lanes 8-15), then the cube-cube
-  // corners (a lane each), each direction with its own share count
+// 3, pass A's sums (two-cube build). Each body its spheres, then its pairs
+// (LaneModel.bc up to the second box's entries, which come last), into its
+// wrench registers and cf; the box lane the box's spheres, then corners,
+// into bw.
+LP_DEV void lp_body_sums_phase(const LaneModel* m, LpEnv* s, LpLane& L, int lane) {
+  const LpContactBuf* cb = &s->u.c;
+  const int split = m->ns + m->n_sc;  // the first force slot of the second box's
+  LP_EACH_BODY(k, i,
+    float cf[3] = {0.f, 0.f, 0.f}, bF[3] = {0.f, 0.f, 0.f}, bN[3] = {0.f, 0.f, 0.f};
+    for (int h = 0; h < m->nbc[i]; ++h) {
+      const int e = m->bc[i * LP_MAXBC + h];
+      if ((e & 255) >= split) break;
+      const float* f = cb->F[e & 255];
+      float t[3];
+      lp_cross(cb->sp[(e >> 8) & 255], f, t);
+      if (e >> 16) { lp_sub3(cf, f); lp_sub3(bF, f); lp_sub3(bN, t); }
+      else { lp_add3(cf, f); lp_add3(bF, f); lp_add3(bN, t); }
+    }
+    for (int c = 0; c < 3; ++c) {
+      s->cf[3 * i + c] = cf[c];
+      L.W[k][c] = bF[c];
+      L.W[k][3 + c] = bN[c];
+    })
+  if (lane == LP_BOX_LANE && m->has_box) {
+    float box_f[3] = {0.f, 0.f, 0.f}, box_t[3] = {0.f, 0.f, 0.f};
+    for (int j = 0; j < m->ns + 8; ++j) {
+      lp_add3(box_f, cb->BW[j]);
+      lp_add3(box_t, cb->BW[j] + 3);
+    }
+    for (int c = 0; c < 3; ++c) { s->bw[c] = box_f[c]; s->bw[3 + c] = box_t[c]; }
+  }
+}
+
+// 2, pass B (two-cube build), over pass A's words: the spheres vs the second
+// box (its own share count), its corners vs ground (lanes 8-15), then the
+// cube-cube corners (a lane each), each direction with its own share count,
+// each into its own slot.
+LP_DEV void lp_box2_forces_phase(const LaneModel* m, LpEnv* s, int lane) {
+  LpContactBuf2* cb = &s->u.c2;
+  const float bm_s = s->drv[2], fr_s = s->drv[3];
+  const float inv_box2_mass = 1.0f / (m->box2_mass * bm_s);
+  const float inv_box2_in = 1.0f / (m->box2_inertia * bm_s);
+  int n_on = 0;
+  for (int r = 0; r * LP_W < m->ns; ++r) n_on += LP_POPC(s->act2[r]);
+  const float share2_bm = fmaxf((float)n_on, 1.0f) * inv_box2_mass;
+  for (int j = lane; j < m->ns; j += LP_W)
+    lp_sphere_box(m, s->Rb2, s->box + 13, m->half2, cb->sp[j], cb->sv[j], m->srad[j],
+                  m->smeff[j], share2_bm, inv_box2_in, m->mu_hb2 * fr_s, cb->F2[j], cb->BW2[j]);
   for (int c8 = lane - 8; c8 >= 0 && c8 < 8; c8 += LP_W)
     lp_corner_ground(m, s->Rb2, s->box + 13, m->half2, c8, inv_box2_mass, inv_box2_in,
                      m->mu_b2g * fr_s, cb->BW2[m->ns + c8]);
-  float n_bb[2] = {0.f, 0.f};
-  for (int c = 0; c < 16; ++c) n_bb[c >> 3] += cb->actbb[c];
+  const float n_bb[2] = {(float)LP_POPC(s->actbb & 0xffu), (float)LP_POPC(s->actbb >> 8)};
   for (int c = lane; c < 16; c += LP_W)
     lp_cube_corner(m, s, c, fmaxf(n_bb[c >> 3], 1.0f), cb->BB[c]);
-#endif
 }
+#endif
 
 // Box integration with PhysX-style velocity caps (box lane).
 LP_DEV void lp_box_integrate(const LaneModel* m, float* box, const float* box_f,
@@ -826,8 +931,24 @@ LP_DEV void lp_box_integrate(const LaneModel* m, float* box, const float* box_f,
 // the world origin (T = Ic_w - m [c]x[c]x, 6 terms of the symmetric 3x3; K =
 // m c), into registers. Box lane: the box's contact wrench (spheres, then
 // corners, then the cube-cube sums) and its integration; the second box's
-// lane the same for its box.
+// lane the same for its box. In the two-cube build (pass B) each sum goes
+// on from pass A's (lp_body_sums_phase).
 LP_DEV void lp_body_own(const LaneModel* m, LpEnv* s, int i, float* W, float* T, float* K) {
+#if LP_HAS_BOX2
+  const LpContactBuf2* cb = &s->u.c2;
+  const int split = m->ns + m->n_sc;
+  float cf[3], bF[3], bN[3];
+  for (int c = 0; c < 3; ++c) { cf[c] = s->cf[3 * i + c]; bF[c] = W[c]; bN[c] = W[3 + c]; }
+  for (int k = 0; k < m->nbc[i]; ++k) {
+    int e = m->bc[i * LP_MAXBC + k];
+    if ((e & 255) < split) continue;
+    const float* f = cb->F2[(e & 255) - split];
+    float t[3];
+    lp_cross(cb->sp[(e >> 8) & 255], f, t);
+    if (e >> 16) { lp_sub3(cf, f); lp_sub3(bF, f); lp_sub3(bN, t); }
+    else { lp_add3(cf, f); lp_add3(bF, f); lp_add3(bN, t); }
+  }
+#else
   const LpContactBuf* cb = &s->u.c;
   float cf[3] = {0.f, 0.f, 0.f}, bF[3] = {0.f, 0.f, 0.f}, bN[3] = {0.f, 0.f, 0.f};
   for (int k = 0; k < m->nbc[i]; ++k) {
@@ -838,6 +959,7 @@ LP_DEV void lp_body_own(const LaneModel* m, LpEnv* s, int i, float* W, float* T,
     if (e >> 16) { lp_sub3(cf, f); lp_sub3(bF, f); lp_sub3(bN, t); }
     else { lp_add3(cf, f); lp_add3(bF, f); lp_add3(bN, t); }
   }
+#endif
   for (int c = 0; c < 3; ++c) s->cf[3 * i + c] = cf[c];
   float mi = m->mass[i];
   if (mi == 0.f) {
@@ -873,25 +995,31 @@ LP_DEV void lp_body_own(const LaneModel* m, LpEnv* s, int i, float* W, float* T,
 }
 
 LP_DEV void lp_body_phase(const LaneModel* m, LpEnv* s, LpLane& L, int lane) {
+#if LP_HAS_BOX2
+  const LpContactBuf2* cb = &s->u.c2;
+#else
   const LpContactBuf* cb = &s->u.c;
+#endif
   LP_EACH_BODY(k, i, lp_body_own(m, s, i, L.W[k], L.T[k], L.K[k]);)
   if (lane == LP_BOX_LANE) {
     float box_f[3] = {0.f, 0.f, 0.f}, box_t[3] = {0.f, 0.f, 0.f};
     if (m->has_box) {
       const float bm_s = s->drv[2];
-      for (int j = 0; j < m->ns + 8; ++j) {
-        lp_add3(box_f, cb->BW[j]);
-        lp_add3(box_t, cb->BW[j] + 3);
-      }
 #if LP_HAS_BOX2
-      // + (fa1 + fa2): its corners in the second box, then the second box's
-      // corners in it (the reaction: minus the force, minus its torque about
-      // this box)
+      // pass A's spheres and corners (bw), + (fa1 + fa2): its corners in the
+      // second box, then the second box's corners in it (the reaction: minus
+      // the force, minus its torque about this box)
+      for (int c = 0; c < 3; ++c) { box_f[c] = s->bw[c]; box_t[c] = s->bw[3 + c]; }
       float fa1[3] = {0.f, 0.f, 0.f}, ta1[3] = {0.f, 0.f, 0.f};
       float fa2[3] = {0.f, 0.f, 0.f}, ta2[3] = {0.f, 0.f, 0.f};
       for (int c = 0; c < 8; ++c) { lp_add3(fa1, cb->BB[c]); lp_add3(ta1, cb->BB[c] + 3); }
       for (int c = 8; c < 16; ++c) { lp_sub3(fa2, cb->BB[c]); lp_sub3(ta2, cb->BB[c] + 6); }
       for (int c = 0; c < 3; ++c) { box_f[c] += fa1[c] + fa2[c]; box_t[c] += ta1[c] + ta2[c]; }
+#else
+      for (int j = 0; j < m->ns + 8; ++j) {
+        lp_add3(box_f, cb->BW[j]);
+        lp_add3(box_t, cb->BW[j] + 3);
+      }
 #endif
       lp_box_integrate(m, s->box, box_f, box_t, 1.0f / (m->box_mass * bm_s),
                        1.0f / (m->box_inertia * bm_s));
@@ -1070,8 +1198,15 @@ LP_DEV void lp_substep(const LaneModel* m, LpEnv* s, LpLane* Ls) {
   for (int lev = 0; lev < m->n_levels; ++lev)
     LP_WARP(lp_fk_phase(m, lev, lane, L, s->q, s->qd, s->spawn, s->kin, s->S);
             if (lev == 0) lp_box_rots(m, s, lane););
+#if LP_HAS_BOX2
+  LP_WARP(lp_spheres_phase(m, s, lane, L.mask););
+  LP_WARP(lp_forces_phase(m, s, lane););
+  LP_WARP(lp_body_sums_phase(m, s, L, lane););
+  LP_WARP(lp_box2_forces_phase(m, s, lane););
+#else
   LP_WARP(lp_spheres_phase(m, s, lane););
   LP_WARP(lp_forces_phase(m, s, lane););
+#endif
   LP_WARP(lp_body_phase(m, s, L, lane););
   LP_WARP(lp_tree_store(m, s, L, lane););
   for (int lev = m->n_levels - 2; lev >= 0; --lev) LP_WARP(lp_tree_level(m, s, lev, lane););

@@ -13,7 +13,9 @@ same bits whichever order its lanes run in (a phase that reads a value
 another lane writes in the same phase does not), and each env's slot of
 shared memory stays within the budget the design states. Every build of
 `kernel_build.BUILDS` but K3's is built here with its defines: K2 with the
-second box (held to the plain engine on a two-cube state), and K1's
+second box (held to the plain engine on a two-cube state, and on one with
+finger spheres pressed into the second cube, which exercises the two-cube
+build's second contact pass), and K1's
 BaseTask, BoxStacking, BoxReorientation, InHandReorientation and BoxPushing
 builds (held to the plain fused step, as the BlindGrasping build is on the
 README recipe and on BlindGraspingClearance, and with K2 on the hand
@@ -33,9 +35,11 @@ import pytest
 import torch
 
 from dexrobot_isaac_tpu_torch import train as cli
+from dexrobot_isaac_tpu_torch.constants import NUM_BASE_DOFS
 from dexrobot_isaac_tpu_torch.envs import fused_step as fsm
 from dexrobot_isaac_tpu_torch.envs.fused_step import FusedUnsupported
 from dexrobot_isaac_tpu_torch.factory import make_env
+from dexrobot_isaac_tpu_torch.ops import quat as qm
 from dexrobot_isaac_tpu_torch.physics import lane_step as ls
 from dexrobot_isaac_tpu_torch.physics.engine import HandPhysics
 from dexrobot_isaac_tpu_torch.physics.types import SimParams, box_rows
@@ -342,12 +346,13 @@ def test_blind_grasping_slots_unchanged(host_libs):
     assert fsm.shared_layout(host_libs["fused_step"])[:4] == (6996, 8, 7168, 240)
 
 
-@pytest.mark.parametrize("build,blocks", [("control_step_box2", 3), ("fused_step_stacking", 3),
+@pytest.mark.parametrize("build,blocks", [("control_step_box2", 4), ("fused_step_stacking", 4),
                                           ("fused_step_base", 4), ("fused_step_reorient", 4),
                                           ("fused_step_inhand", 4), ("fused_step_pushing", 4)])
 def test_task_build_slots_within_budget(host_libs, build, blocks):
-    """The two-box builds' slots fit 3 blocks of 8 envs per SM (24 envs),
-    the one-box task builds of K1 the one-box design's 4 (32 envs)."""
+    """Every task build's slot fits the one-box design's 4 blocks of 8 envs
+    per SM (32 envs): the two-box builds too, whose two contact passes share
+    one buffer."""
     lib = host_libs[build]
     if build.startswith("control_step"):
         cs, _, envs, budget = ls.shared_layout(lib)
@@ -362,7 +367,8 @@ def test_task_build_slots_within_budget(host_libs, build, blocks):
 # separated by spaces)
 MJCF_XML = os.path.join(REPO, "dexrobot_isaac_tpu", "assets",
                         "dexhand021_right_simplified_floating.xml")
-SCENES = {"BoxStacking": "task=BoxStacking", "BaseTask": "task=BaseTask",
+SCENES = {"BoxStacking": "task=BoxStacking", "BoxStackingPressed": "task=BoxStacking",
+          "BaseTask": "task=BaseTask",
           "BoxReorientation": "task=BoxReorientation",
           "InHandReorientation": "task=InHandReorientation",
           "InHandFingersOnly": "experiments=InHandFingersOnly", "BoxPushing": "task=BoxPushing",
@@ -375,7 +381,8 @@ def _scene(task, n=16, seed=3):
     """`task` (a SCENES id) at n envs (2 substeps) after 3 plain steps of
     random actions; for BoxStacking, every other env's pick cube then rests
     on the platform (cube-cube contact) and the rest keep theirs on the
-    ground."""
+    ground; BoxStackingPressed then lifts the platform of the rest onto a
+    finger (`_press_into_box2`)."""
     env = make_env(load_config(SCENES[task].split() + [f"numEnvs={n}", "sim.substeps=2"]),
                    seed=seed, device="cpu")
     fused = env.make_fused()
@@ -389,7 +396,38 @@ def _scene(task, n=16, seed=3):
         b, b2 = lay.offs_f["box_pos"][0], lay.offs_f["box2_pos"][0]
         fs.rows_f[b:b + 2, ::2] = fs.rows_f[b2:b2 + 2, ::2] + 0.005
         fs.rows_f[b + 2, ::2] = top
+    if task == "BoxStackingPressed":
+        assert bool((_press_into_box2(env, fused, fs).abs().sum((1, 2)) > 0)[1::2].all())
     return env, fused, fs, g
+
+
+def _press_into_box2(env, fused, fs):
+    """Every other env (the odd ones) gets the second cube, unrotated and at
+    rest, just over its highest finger sphere and 3 mm into it. Returns the
+    plain engine's sphere-vs-second-box forces on the spheres (N, S, 3)."""
+    eng, lay = env.comps.engine, fused.layout
+    st = fused.unpack(fs)
+    ph, n, p = st.physics, fs.rows_f.shape[1], eng.params
+    sb, r = eng.t["sphere_body"], eng.t["sphere_radius"]
+    kin = eng.fk(ph.q, ph.qd, env._spawn.expand(n, 3))
+    sp = kin.body_pos[:, sb] + qm.quat_rotate(kin.body_quat[:, sb], eng.t["sphere_pos"])
+    top = torch.where(sb >= NUM_BASE_DOFS, sp[..., 2] + r, -np.inf).argmax(1)
+    at = torch.arange(n)
+    pos = sp[at, top] + torch.stack([torch.zeros(n), torch.zeros(n),
+                                     p.box2_size / 2 + r[top] - 0.003], 1)
+    rows = {"box2_pos": pos, "box2_quat": torch.tensor([0.0, 0.0, 0.0, 1.0]).expand(n, 4),
+            "box2_linvel": torch.zeros(n, 3), "box2_angvel": torch.zeros(n, 3)}
+    for k, v in rows.items():
+        o = lay.offs_f[k][0]
+        fs.rows_f[o:o + v.shape[1], 1::2] = v[1::2].t()
+    ph = fused.unpack(fs).physics
+    sv = kin.body_linvel[:, sb] + torch.cross(kin.body_angvel[:, sb],
+                                              sp - kin.body_pos[:, sb], dim=-1)
+    b2m = p.box2_mass * st.dr.box_mass_scale
+    g_kick = torch.tensor([0.0, 0.0, p.gravity * eng.substep_dt])
+    return eng._sphere_box(sp, sv, (ph.box2_pos, ph.box2_quat, ph.box2_linvel, ph.box2_angvel),
+                           p.box2_size / 2, b2m, eng.box2_inertia * st.dr.box_mass_scale,
+                           torch.ones(n, 1), g_kick)[0]
 
 
 @pytest.fixture(scope="module", params=list(SCENES))
@@ -427,10 +465,12 @@ def test_control_step_source_matches_plain_on_mjcf_hand(host_libs):
     assert bool((info.body_contact_force.abs().sum((1, 2)) > 0).any())
 
 
-def test_control_step_box2_source_matches_plain(host_libs):
+@pytest.mark.parametrize("scene", ["BoxStacking", "BoxStackingPressed"])
+def test_control_step_box2_source_matches_plain(host_libs, scene):
     """K2's two-box build against the plain engine, with its lanes forward
-    and in reverse bitwise equal."""
-    env, fused, fs, _ = _scene("BoxStacking")
+    and in reverse bitwise equal; BoxStackingPressed with finger spheres
+    pressed into the second cube (the second pass's sphere forces)."""
+    env, fused, fs, _ = _scene(scene)
     c, n, lib = env.comps, fs.rows_f.shape[1], host_libs["control_step_box2"]
     st = fused.unpack(fs)
     ph, spawn = st.physics, env._spawn.expand(n, 3)
