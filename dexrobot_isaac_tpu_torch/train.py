@@ -90,7 +90,7 @@ class CliRun:
     fused: Any                 # the fused step (envs/fused_step.py) or None
     learner: PPOLearner
     ppo: Any
-    run_dir: str               # rank 0's run; a scratch dir on another rank
+    run_dir: str               # rank 0's run; never made on another rank
     logger: Any
     test_mode: bool
     group: Group
@@ -181,7 +181,8 @@ def build(cfg: Dict[str, Any]) -> CliRun:
     task_name = get_by_path(cfg, "task.name", "BaseTask")
     runs_base = os.environ.get("DEXHAND_RUNS_DIR", ".")
     # the run directory, log file, TensorBoard and checkpoints are rank 0's;
-    # another rank works in a scratch dir and writes nothing
+    # another rank writes nothing, and its run_dir is a name that is never
+    # made
     if group.is_main:
         exp = ExperimentManager(
             base_dir=runs_base,
@@ -192,7 +193,7 @@ def build(cfg: Dict[str, Any]) -> CliRun:
                                  experiment_name=get_by_path(cfg, "train.logging.experimentName"),
                                  cfg=cfg)
     else:
-        run_dir = tempfile.mkdtemp(prefix=f"dexhand_rank{group.rank}_")
+        run_dir = os.path.join(tempfile.gettempdir(), f"dexhand_rank{group.rank}")
     log_file = (None if get_by_path(cfg, "train.logging.noLogFile", False) or not group.is_main
                 else os.path.join(run_dir, f"{mode}.log"))
     logger = setup_logging(get_by_path(cfg, "train.logging.logLevel", "info"), log_file)

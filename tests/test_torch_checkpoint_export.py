@@ -19,7 +19,6 @@ import ctypes
 import dataclasses
 import os
 import shutil
-import subprocess
 
 import msgpack
 import numpy as np
@@ -41,8 +40,10 @@ from dexrobot_isaac_tpu_torch.rl import export
 from dexrobot_isaac_tpu_torch.rl.ppo import PPOConfig, PPOLearner
 from dexrobot_isaac_tpu_torch.rl.running_stats import RunningMeanStd
 from dexrobot_isaac_tpu_torch.utils import msgpack_read
+from tests.proc import run
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CMAKE_TIMEOUT = 120  # seconds for each cmake step
 NUM_OBS, NUM_ACT, NUM_STATES = 12, 4, 3
 STATES = [0, NUM_STATES]
 
@@ -291,8 +292,8 @@ def native_runtime(tmp_path_factory):
         pytest.skip("cmake not available")
     build = tmp_path_factory.mktemp("native") / "build"
     src = os.path.join(REPO, "native", "policy_runtime")
-    subprocess.run(["cmake", "-S", src, "-B", str(build)], check=True, capture_output=True)
-    subprocess.run(["cmake", "--build", str(build)], check=True, capture_output=True)
+    run(["cmake", "-S", src, "-B", str(build)], timeout=CMAKE_TIMEOUT)
+    run(["cmake", "--build", str(build)], timeout=CMAKE_TIMEOUT)
     lib = ctypes.CDLL(str(build / "libdex_policy.so"))
     lib.dex_policy_load.restype = ctypes.c_void_p
     lib.dex_policy_load.argtypes = [ctypes.c_char_p]

@@ -19,7 +19,8 @@ package's `shard_map` learner, on the CPU over gloo.
   iteration, per-rank reset and DR draws (rank 0's a single process's),
   the curriculum promoting alike from the breakdown summed over the ranks;
 - the CLI launched as 2 processes with torchrun's environment: rank 0
-  alone writes; `test=true` and an uneven `numEnvs` are refused;
+  alone writes, and rank 1 makes no directory of its own, also when it
+  fails; `test=true` and an uneven `numEnvs` are refused;
 - `dryrun_multichip(4)`.
 
 Ranks are processes of `spawn_ranks` (gloo on a free local port, each
@@ -51,6 +52,7 @@ from dexrobot_isaac_tpu_torch.parallel.mesh import free_port, init_distributed
 from dexrobot_isaac_tpu_torch.rl.ppo import PPOLearner, ppo_config_from
 from dexrobot_isaac_tpu_torch.utils.config import load_config
 from tests import torch_dist_workers as workers
+from tests.proc import start, wait_all
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = torch.as_tensor
@@ -336,7 +338,7 @@ def test_two_ranks_only_rank0_writes(two_ranks):
     assert len(runs) == 1
     assert "latest.pt" in os.listdir(os.path.join(path, "runs0", "runs_all", runs[0], "nn"))
     assert os.listdir(os.path.join(path, "runs1")) == []
-    assert not os.listdir(two_ranks["got"][1]["run_dir"])
+    assert not os.path.exists(two_ranks["got"][1]["run_dir"])
 
 
 # ---------------------------------------------------------------- world size 1
@@ -407,12 +409,15 @@ CLI_ARGS = [
 
 
 def _launch(args, world, rank, port, runs):
+    """The CLI as one rank, its runs and its temporary files under `runs`
+    and `runs`_tmp."""
+    tmp = runs.parent / f"{runs.name}_tmp"
+    tmp.mkdir()
     env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
-               DEXHAND_RUNS_DIR=str(runs), PYTHONPATH=REPO)
-    return subprocess.Popen([sys.executable, "-m", "dexrobot_isaac_tpu_torch.train", *args],
-                            cwd=REPO, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+               DEXHAND_RUNS_DIR=str(runs), PYTHONPATH=REPO, TMPDIR=str(tmp))
+    return start([sys.executable, "-m", "dexrobot_isaac_tpu_torch.train", *args], cwd=REPO,
+                 env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 @pytest.fixture(scope="module")
@@ -429,14 +434,8 @@ def cli_runs(tmp_path_factory):
         "odd0": _launch(CLI_ARGS + ["numEnvs=15"], 2, 0, p_odd, runs["odd0"]),
         "odd1": _launch(CLI_ARGS + ["numEnvs=15"], 2, 1, p_odd, runs["odd1"]),
     }
-    out = {}
-    try:
-        for k, p in procs.items():
-            out[k] = (p.communicate(timeout=SPAWN_TIMEOUT)[0], p.returncode)
-    finally:
-        for p in procs.values():
-            p.kill()
-    return runs, out
+    outs = wait_all(list(procs.values()), SPAWN_TIMEOUT)
+    return runs, {k: (o, p.returncode) for (k, p), (o, _) in zip(procs.items(), outs)}
 
 
 def test_cli_two_processes_rank0_writes(cli_runs):
@@ -446,6 +445,9 @@ def test_cli_two_processes_rank0_writes(cli_runs):
     assert "latest.pt" in os.listdir(runs["train0"] / "runs_all" / run / "nn")
     assert os.listdir(runs["train1"]) == []
     assert "rank 1 of 2 (gloo, cpu)" in out["train1"][0]
+    # rank 1 names a run dir in its TMPDIR but makes none
+    assert "Run directory: " + str(runs["train1"]) + "_tmp/dexhand_rank1" in out["train1"][0]
+    assert os.listdir(str(runs["train1"]) + "_tmp") == []
 
 
 def test_cli_refuses_multiprocess_eval(cli_runs):
@@ -456,10 +458,11 @@ def test_cli_refuses_multiprocess_eval(cli_runs):
 
 
 def test_cli_refuses_uneven_shards(cli_runs):
-    _, out = cli_runs
+    runs, out = cli_runs
     for k in ("odd0", "odd1"):
         text, rc = out[k]
         assert rc != 0 and "numEnvs=15 does not divide over 2 ranks" in text
+    assert os.listdir(str(runs["odd1"]) + "_tmp") == []
 
 
 # ---------------------------------------------------------------- dryrun

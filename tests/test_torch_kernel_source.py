@@ -28,7 +28,6 @@ is refused when the fused step is made.
 import ctypes
 import logging
 import os
-import subprocess
 
 import numpy as np
 import pytest
@@ -46,9 +45,11 @@ from dexrobot_isaac_tpu_torch.physics.types import SimParams, box_rows
 from dexrobot_isaac_tpu_torch.utils.config import load_config
 from dexrobot_isaac_tpu_torch.utils.kernel_build import BUILDS, CSRC
 from tests import golden_scenario as gs
+from tests.proc import start, wait_all
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = torch.as_tensor
+GXX_TIMEOUT = 200  # seconds for the host builds, all at once
 P, I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -57,10 +58,11 @@ def host_libs(tmp_path_factory):
     """Every K1 and K2 build, compiled for the host by g++ (all at once)."""
     out = tmp_path_factory.mktemp("host_kernels")
     names = [b for b, (src, _) in BUILDS.items() if src in ("control_step", "fused_step")]
-    procs = {b: subprocess.Popen(["g++", "-x", "c++", "-O2", "-std=c++17", "-shared", "-fPIC",
-                                  *BUILDS[b][1], "-o", str(out / f"{b}.so"),
-                                  os.path.join(CSRC, BUILDS[b][0] + ".cu")]) for b in names}
-    assert all(p.wait(timeout=600) == 0 for p in procs.values())
+    procs = {b: start(["g++", "-x", "c++", "-O2", "-std=c++17", "-shared", "-fPIC",
+                       *BUILDS[b][1], "-o", str(out / f"{b}.so"),
+                       os.path.join(CSRC, BUILDS[b][0] + ".cu")]) for b in names}
+    wait_all(list(procs.values()), GXX_TIMEOUT)
+    assert all(p.returncode == 0 for p in procs.values())
     libs = {b: ctypes.CDLL(str(out / f"{b}.so")) for b in names}
     for b, lib in libs.items():
         if BUILDS[b][0] == "control_step":

@@ -4,8 +4,6 @@ preprocessor's branches, and their host builds), and the stacked BoxStacking
 scene it times and `chip_smoke.py` holds the two-box builds on (cube-cube
 contact where the pick cube rests on the platform)."""
 
-import subprocess
-
 import pytest
 import torch
 
@@ -13,6 +11,7 @@ from dexrobot_isaac_tpu_torch.factory import make_env
 from dexrobot_isaac_tpu_torch.utils import lane_probe as lp
 from dexrobot_isaac_tpu_torch.utils.config import load_config
 from dexrobot_isaac_tpu_torch.utils.kernel_build import BUILDS, CSRC
+from tests.proc import run
 
 ONE_BOX = ["fk", "spheres", "forces", "body", "tree_store", "tree_level", "mass_row", "rhs",
            "ltl", "forward"]
@@ -58,10 +57,8 @@ def test_variant_compiles_for_the_host(variants, tmp_path, variant, build):
     src, out, _ = variants
     for f, text in src.items():
         (tmp_path / f).write_text(out[variant].get(f, text))
-    r = subprocess.run(["g++", "-x", "c++", "-fsyntax-only", "-std=c++17", *BUILDS[build][1],
-                        str(tmp_path / (BUILDS[build][0] + ".cu"))],
-                       capture_output=True, text=True, timeout=300)
-    assert r.returncode == 0, r.stderr
+    run(["g++", "-x", "c++", "-fsyntax-only", "-std=c++17", *BUILDS[build][1],
+         str(tmp_path / (BUILDS[build][0] + ".cu"))], timeout=300)
 
 
 def test_stacked_scene_has_cube_cube_contact():

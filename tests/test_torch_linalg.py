@@ -21,7 +21,6 @@ error over the max magnitude of the solution).
 
 import ctypes
 import os
-import subprocess
 
 import numpy as np
 import pytest
@@ -32,6 +31,7 @@ from dexrobot_isaac_tpu_torch.ops import linalg
 from dexrobot_isaac_tpu_torch.physics import types as tt
 from dexrobot_isaac_tpu_torch.physics.engine import HandPhysics
 from dexrobot_isaac_tpu_torch.utils.kernel_build import CSRC
+from tests.proc import run
 from tests.test_torch_physics import PARAMS, _inputs
 
 REL_TOL = 1e-5
@@ -105,8 +105,8 @@ def test_wrapper_refuses_other_devices():
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     so = str(tmp_path_factory.mktemp("host_spd") / "spd_solve.so")
-    subprocess.run(["g++", "-x", "c++", "-O2", "-std=c++17", "-shared", "-fPIC", "-o", so,
-                    os.path.join(CSRC, "spd_solve.cu")], check=True, timeout=300)
+    run(["g++", "-x", "c++", "-O2", "-std=c++17", "-shared", "-fPIC", "-o", so,
+         os.path.join(CSRC, "spd_solve.cu")], timeout=300)
     lib = ctypes.CDLL(so)
     lib.spd_solve_host.argtypes = [P, P, P, ctypes.c_int, ctypes.c_int]
     lib.lane_order_host.argtypes = [ctypes.c_int]

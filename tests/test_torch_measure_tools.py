@@ -51,9 +51,13 @@ from dexrobot_isaac_tpu_torch.tools import (
 from dexrobot_isaac_tpu_torch.utils.config import load_config
 from dexrobot_isaac_tpu_torch.utils.kernel_build import CSRC
 from tests import golden_scenario as gs
+from tests.proc import run, start, stop
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ONE_SUBSTEP = ("sim.substeps=1", "sim.physics_steps_per_control=1")
+# seconds for a JAX subprocess's result: each takes 17-66 s alone on 8 CPU
+# cores, and the three run beside the tier-1 command's six workers
+JAX_SIDE_TIMEOUT = 400
 LINE_KEYS = ("metric", "value", "unit", "vs_baseline", "median_of_5", "flops_per_env_step",
              "achieved_flops_per_s", "mfu", "f32_mfu")
 
@@ -64,23 +68,22 @@ def jax_side():
     jax_side(part) -> the part's result, "count" or "coriolis <scale>"."""
     env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
     parts = ["count"] + [f"coriolis {scale}" for scale, _ in measure_coriolis.SCALES]
-    procs = {part: subprocess.Popen([sys.executable, "-m", "tests.torch_measure_jax",
-                                     *part.split()], cwd=REPO, env=env, stdout=subprocess.PIPE,
-                                    stderr=subprocess.PIPE, text=True) for part in parts}
+    procs = {part: start([sys.executable, "-m", "tests.torch_measure_jax", *part.split()],
+                         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True) for part in parts}
     done = {}
 
     def result(part):
         if part not in done:
-            out, err = procs[part].communicate(timeout=900)
+            out, err = procs[part].communicate(timeout=JAX_SIDE_TIMEOUT)
             assert procs[part].returncode == 0, err[-3000:]
             done[part] = json.loads(out.strip().splitlines()[-1])
         return done[part]
 
-    yield result
-    for proc in procs.values():
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
+    try:
+        yield result
+    finally:
+        stop(procs.values())
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -156,8 +159,8 @@ def host_fused_lib(tmp_path_factory):
     tests/test_torch_kernel_source.py builds it (the roofline reads its own
     unoptimized build, `kernel_build.host_library`)."""
     out = str(tmp_path_factory.mktemp("roofline_host") / "fused_step.so")
-    subprocess.run(["g++", "-x", "c++", "-O2", "-std=c++17", "-shared", "-fPIC", "-o", out,
-                    os.path.join(CSRC, "fused_step.cu")], check=True, timeout=600)
+    run(["g++", "-x", "c++", "-O2", "-std=c++17", "-shared", "-fPIC", "-o", out,
+         os.path.join(CSRC, "fused_step.cu")], timeout=300)
     return ctypes.CDLL(out)
 
 

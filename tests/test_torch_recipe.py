@@ -25,18 +25,24 @@ from dexrobot_isaac_tpu_torch.utils.config import load_config
 from tests import torch_parity as tp
 
 LIGHT = ["numEnvs=8", "env.episodeLength=3", "sim.substeps=1", "sim.physics_steps_per_control=2"]
-EXPERIMENTS = ("BlindGraspingCurriculum", "BlindGraspingClearance", "BlindGraspingDR",
-               "BoxStackingDR")
+# the DR pair runs in tests/test_torch_recipe_dr.py: each experiment's JAX
+# rollout takes 128-152 s under the tier-1 command's six workers, and the four
+# in one file took 567 s there
+EXPERIMENTS = ("BlindGraspingCurriculum", "BlindGraspingClearance")
 SEED, STEPS = 5, 3
+
+
+def build_case(name):
+    config = [f"experiments={name}"] + LIGHT
+    extras = ("success_strict", "done_strict") if name == "BoxStackingDR" else ()
+    run = tp.jax_rollout(config, SEED, STEPS, extras)
+    env = make_env(load_config(config), seed=SEED, device="cpu")
+    return name, env, run, tp.port_runs(env, run)
 
 
 @pytest.fixture(scope="module", params=EXPERIMENTS)
 def case(request):
-    config = [f"experiments={request.param}"] + LIGHT
-    extras = ("success_strict", "done_strict") if request.param == "BoxStackingDR" else ()
-    run = tp.jax_rollout(config, SEED, STEPS, extras)
-    env = make_env(load_config(config), seed=SEED, device="cpu")
-    return request.param, env, run, tp.port_runs(env, run)
+    return build_case(request.param)
 
 
 def test_experiment_shape(case):
