@@ -7,7 +7,8 @@ result, without them or outside a checkout of this repository. Phases, each
 failing the run when it fails:
 
 1. build   compile every kernel build of csrc/ (kernel_build.BUILDS: K1 for
-           each of the six tasks, K2 for one box and for two, K3) with nvcc
+           each of the six tasks, K2 for one box and for two, K3, the
+           learner's clip + Adam) with nvcc
            for sm_90a (one nvcc per build, started together); print the
            build seconds and the ptxas register/spill report, each kernel's
            shared bytes per block and resident blocks (envs, or K3's
@@ -57,6 +58,17 @@ failing the run when it fails:
 6. coriolis one Coriolis control step at 4096 envs through make_control_step
            (the engine's ops with K3) against the plain Coriolis sequence:
            q, qd, box, contact force within 1e-3 relative.
+   clip_adam the learner's clip + Adam kernel pair (csrc/clip_adam.cu)
+           against its plain version over one README-recipe iteration's 64
+           minibatch updates of the recipe's network (17 leaves), the clip
+           engaged in every other one: params within 1e-6 absolute after
+           the 64, the step count, 2 launches per update, a second run
+           bitwise equal; whether one update with gradients whose norm sums
+           exactly in any order is bitwise equal to the plain version's is
+           printed; one update under torch.profiler runs the two launches
+           and no other device op; ms per launch pair queued and paced, the
+           plain version's ms and the byte bound. `python3 chip_smoke.py
+           --clip-adam` runs this phase alone.
 7. main    the port's main path, counted: make_env -> reset -> 600 fused
            steps of uniform random actions in [-1, 1] (episodeLength 500, so
            auto-resets fire), then 10 unfused (evaluation-path) steps.
@@ -68,7 +80,8 @@ failing the run when it fails:
            and 10 unfused), each path counted on its own.
 8. train   the CLI trainer (dexrobot_isaac_tpu_torch/train.py run_train)
            in-process on BlindGrasping at 4096 envs, default config (horizon
-           16): 3 iterations on the fused step (K1 launches = 3 x 16), then 1
+           16): 3 iterations on the fused step (K1 launches = 3 x 16, the
+           clip + Adam kernel's 2 per minibatch update), then 1
            with sim.coriolis=true fused=off (K3 launches = 16 x 16), then
            evaluation (test=true) from the checkpoint just written (K2
            launches > 0); counters zeroed before and read after each run.
@@ -243,7 +256,7 @@ def occupancy(kb, lane_step) -> dict:
             check(lib.fused_step_occupancy(*map(ctypes.byref, v[:2])) == 0,
                   f"{name} occupancy query failed")
             out[name] = (v[0].value, v[1].value, envs)
-        else:
+        elif name == "spd_solve":
             check(lib.spd_solve_occupancy(*map(ctypes.byref, v[:3])) == 0,
                   f"{name} occupancy query failed")
             out[name] = (v[0].value, v[1].value, v[2].value)
@@ -475,6 +488,97 @@ def split_update(s) -> dict:
             "all_err": max(float((split[k] - whole[k]).abs().max()) for k in split)}
 
 
+def clip_adam_phase(dev, card: str) -> dict:
+    """[clip_adam] (see the docstring): the learner's clip + Adam kernel pair
+    against its plain version over one README-recipe iteration's minibatch
+    updates on the recipe's network; returns the kernels-line row's
+    numbers."""
+    from dexrobot_isaac_tpu_torch.factory import make_env
+    from dexrobot_isaac_tpu_torch.ops import clip_adam as ca
+    from dexrobot_isaac_tpu_torch.rl.ppo import AdamState, PPOLearner, ppo_config_from
+    from dexrobot_isaac_tpu_torch.tools.roofline import bound
+    from dexrobot_isaac_tpu_torch.utils.config import load_config
+
+    recipe = ["experiments=BlindGraspingCurriculum"]
+    env = make_env(load_config(recipe + ["numEnvs=8"]), seed=0, device=dev)
+    cfg = dataclasses.replace(ppo_config_from(load_config(recipe), env), num_envs=8192)
+    learner = PPOLearner(cfg, None, seed=0, device=dev)
+    st = learner.init_state()
+    updates = cfg.mini_epochs * max(1, cfg.batch_size // cfg.minibatch)
+    total = sum(v.numel() for v in st.params.values())
+    gen = torch.Generator(device=dev).manual_seed(15)
+    # gradients of norm ~7 (the clip engages) and ~0.35 (it does not), in turn
+    grads = [{k: (1e-2 if j % 2 == 0 else 5e-4)
+              * torch.randn(v.shape, generator=gen, device=dev) for k, v in st.params.items()}
+             for j in range(updates)]
+    lr = st.lr
+
+    def run_kernel():
+        p, opt = st.params, st.opt_state
+        for g in grads:
+            p, opt = learner._apply_updates(p, opt, g, lr)
+        return p, opt
+
+    before = kb.LAUNCHES["clip_adam"]
+    pk, ok = run_kernel()
+    torch.cuda.synchronize()
+    launches = kb.LAUNCHES["clip_adam"] - before
+    pk2, ok2 = run_kernel()
+    pp, op = st.params, st.opt_state
+    for g in grads:
+        new, count, mu, nu = ca.clip_adam_plain(pp, g, op.mu, op.nu, op.count, lr, cfg.grad_norm)
+        pp, op = new, AdamState(count, mu, nu)
+    torch.cuda.synchronize()
+    gap = lambda a, b: max(float((a[k] - b[k]).abs().max()) for k in a)
+    bits = lambda a, b: all(torch.equal(a[k].view(torch.int32), b[k].view(torch.int32)) for k in a)
+    err = {"params": gap(pk, pp), "mu": gap(ok.mu, op.mu), "nu": gap(ok.nu, op.nu)}
+    same_count = int(ok.count) == int(op.count) == updates
+    repeat = bits(pk, pk2) and bits(ok.mu, ok2.mu) and bits(ok.nu, ok2.nu)
+    # sums of g*g that are exact in any order: both sides reach the same
+    # norm, so one update is bitwise equal unless a library's rounding differs
+    exact = {k: torch.randint(-4, 5, v.shape, generator=gen, device=dev).float() / 64
+             for k, v in st.params.items()}
+    one_k = learner._apply_updates(st.params, st.opt_state, exact, lr)
+    one_p = ca.clip_adam_plain(st.params, exact, st.opt_state.mu, st.opt_state.nu,
+                               st.opt_state.count, lr, cfg.grad_norm)
+    exact_bits = bits(one_k[0], one_p[0]) and bits(one_k[1].mu, one_p[2])
+    log(f"[clip_adam] {updates} updates of the recipe's network ({len(st.params)} leaves, "
+        f"{total:,} params): kernel vs plain max abs gap params {err['params']:.3e} (tol "
+        f"1e-6), mu {err['mu']:.3e}, nu {err['nu']:.3e}; counts {int(ok.count)}, "
+        f"{int(op.count)}; launches {launches} (2 per update); two runs bitwise equal {repeat}; "
+        f"one update with an order-free norm bitwise equal to plain {exact_bits}")
+    check(err["params"] <= 1e-6 and same_count and launches == 2 * updates and repeat,
+          "the clip + Adam kernel disagrees with its plain version, or missed a launch")
+
+    # one update under the profiler: the two launches and no other device op
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        learner._apply_updates(pk, ok, grads[0], lr)
+        torch.cuda.synchronize()
+    ops = [ev.name() for ev in prof.profiler.kineto_results.events()
+           if ev.device_type() == torch.autograd.DeviceType.CUDA
+           and "annotation" not in str(getattr(ev, "activity_type", lambda: "")())]
+    log(f"[clip_adam] device ops of one update: {ops}")
+    check(len(ops) == 2 and all("clip_adam" in n for n in ops),
+          f"one update ran other device ops than the kernel pair: {ops}")
+
+    call = lambda: learner._apply_updates(pk, ok, grads[0], lr)
+    plain = lambda: ca.clip_adam_plain(pk, grads[0], ok.mu, ok.nu, ok.count, lr, cfg.grad_norm)
+    saved = kb.LAUNCHES["clip_adam"]
+    ms, paced = kb.device_ms(call, 200), cuda_ms(call, 50)
+    plain_ms = cuda_ms(plain, 20)
+    kb.LAUNCHES["clip_adam"] = saved
+    nbytes = 4 * 7 * total  # params, grads and both moments read; params and moments written
+    bms, by = bound(nbytes, 18 * total)  # f32 operations per element, the norm's included
+    log(f"[clip_adam] {ms:.5f} ms per launch pair on the card (queued; paced by the host "
+        f"{paced:.5f}), plain {plain_ms:.4f} ms; bound {bms:.5f} ms ({by}, {nbytes / 1e6:.2f} "
+        f"MB) = {ms / bms:.1f}x ({card})")
+    return {"launches": launches, "err": err["params"], "ms": ms, "paced": paced,
+            "plain": plain_ms, "bound": (bms, by)}
+
+
 def dist_phase(n: int, extra=()) -> dict:
     """[dist] (see the docstring): (a) and (b), each run's ranks started
     together as subprocesses. `extra`: more CLI args (a CPU rehearsal passes
@@ -566,7 +670,8 @@ def dist_phase(n: int, extra=()) -> dict:
     k1 = [r["launches"]["fused_step"] for r in (r0, r1)]
     sps = [st["env_steps_per_s"] for st in r0["stats"]]
     wrote0 = os.path.exists(latest("rank0"))
-    quiet1 = os.listdir(os.path.join(work, "rank1")) == [] and os.listdir(r1["run_dir"]) == []
+    # a non-main rank makes no run directory: its `run_dir` is only a name
+    quiet1 = os.listdir(os.path.join(work, "rank1")) == [] and not os.path.exists(r1["run_dir"])
     sp = r0["split"]
     log(f"[dist] (b) 2 gloo ranks on one card x {r0['num_envs']} envs = {n} global, "
         f"{DIST_ITERS} iterations: params bitwise equal across the ranks after each iteration "
@@ -1110,7 +1215,7 @@ def main() -> int:
         f"{k} {smem} B shared per block of {per} {unit(k)}, {blocks} blocks = {blocks * per} "
         f"{unit(k)} resident per SM" for k, (smem, blocks, per) in occ.items()))
     check(all(b >= 1 for _, b, _ in occ.values()), f"a kernel cannot be resident: {occ}")
-    lane_builds = [k for k in kb.BUILDS if k != "spd_solve"]
+    lane_builds = [k for k in kb.BUILDS if kb.BUILDS[k][0] in ("control_step", "fused_step")]
     check(all(occ[k][1] * occ[k][2] == 32 for k in lane_builds),
           f"a K1 or K2 build does not hold 32 envs per SM: {occ}")
 
@@ -1336,6 +1441,9 @@ def main() -> int:
     check(all(v <= 1e-3 for v in cor.values()) and cor_launches == 16,
           "the Coriolis control step through K3 disagrees with its plain version")
 
+    # ---------------------------------------------------------------- clip_adam
+    adam = clip_adam_phase(dev, card)
+
     # ---------------------------------------------------------------- 7 main path
     env = make_env(load_config(["task=BlindGrasping", f"numEnvs={N_ENVS}"]), seed=42, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1401,9 +1509,13 @@ def main() -> int:
     train_sps = sum(st["env_steps_per_s"] for st in steady) / len(steady)
     log(f"[train] 3 fused iterations x {horizon} steps x {N_ENVS} envs in {tr_s:.2f} s; steady "
         f"(iterations 2-3) {train_sps:,.0f} env-steps/s; launches {tr_launches}")
+    tr_updates = 3 * tr.learner.cfg.mini_epochs * max(
+        1, tr.learner.cfg.batch_size // tr.learner.cfg.minibatch)
     check(tr_launches["fused_step"] == 3 * horizon and finite_params(tr)
+          and tr_launches["clip_adam"] == 2 * tr_updates
           and all(np.isfinite(list(st.values())).all() for st in tr.stats),
-          f"fused training missed K1 or went non-finite: {tr_launches}")
+          f"fused training missed K1 or the clip + Adam kernel ({tr_updates} updates), or "
+          f"went non-finite: {tr_launches}")
     ckpt = os.path.join(tr.run_dir, "nn", "latest.pt")
 
     co, co_launches, co_s = train_run(["maxIterations=1", "sim.coriolis=true",
@@ -1608,6 +1720,7 @@ def main() -> int:
         k1_task[label]["flops"] = fused_step.fused_step_flops(cfg_t, r_t, N_ENVS, done_t,
                                                               fused_t.build)
     launches["spd_solve"] = co_launches["spd_solve"]
+    launches["clip_adam"] = adam["launches"] + tr_launches["clip_adam"]
     for name, count in graphics.items():  # [graphics]'s evaluation runs
         launches[name] += count
     for name, count in tools.items():  # [tools]'s runs
@@ -1643,6 +1756,9 @@ def main() -> int:
         ("control_step_box2", "dexrobot_isaac_tpu_torch/csrc/control_step.cu",
          "dexrobot_isaac_tpu/physics/pallas_step.py:1141", k2b_ms, k2b_paced_ms, k2b_plain_ms,
          k2b_abs, bound(b_k2b, f_k2b), None),
+        ("clip_adam", "dexrobot_isaac_tpu_torch/csrc/clip_adam.cu",
+         "none (the JAX learner's optax chain, left to XLA)", adam["ms"], adam["paced"],
+         adam["plain"], adam["err"], adam["bound"], None),
     ):
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                         "launches": launches[name], "max_abs_err": err, "ms": ms,
@@ -1666,7 +1782,31 @@ def main() -> int:
     return 0
 
 
+def clip_adam_main() -> int:
+    """The [clip_adam] phase alone, after building its kernel alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from dexrobot_isaac_tpu_torch.utils import kernel_build
+
+    global kb
+    kb = kernel_build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = kb.card()
+    log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"[build] nvcc seconds: {kb.build_all(['clip_adam'])}")
+    with open(kb.lib_path("clip_adam") + ".ptxas.txt") as f:
+        for line in kb.ptxas_lines(f.read()):
+            log(f"[build] clip_adam: {line}")
+    print(json.dumps(clip_adam_phase(torch.device("cuda"), card)))
+    print(card)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-worker"]:
         sys.exit(dist_worker(sys.argv[2], sys.argv[3], sys.argv[4:]))
+    if sys.argv[1:2] == ["--clip-adam"]:
+        sys.exit(clip_adam_main())
     sys.exit(main())

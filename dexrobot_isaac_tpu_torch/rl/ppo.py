@@ -17,10 +17,14 @@ What differs from the JAX learner, and why:
   The `affine` multiplier table and the `rotation` static permutation come
   from numpy with the JAX learner's seeds, so they equal its tables.
 - The optimizer is optax's `chain(clip_by_global_norm, adam)` written out
-  (`_apply_updates`): the clip keeps g where ||g|| < max_norm and scales it
-  by max_norm / ||g|| otherwise (no 1e-6 in the norm, unlike
-  `torch.nn.utils.clip_grad_norm_`), then Adam with b1 0.9, b2 0.999 and
-  eps 1e-8 outside the square root, at the carried LR.
+  (`_apply_updates`, `ops/clip_adam.py`): the clip keeps g where ||g|| <
+  max_norm and scales it by max_norm / ||g|| otherwise (no 1e-6 in the
+  norm, unlike `torch.nn.utils.clip_grad_norm_`), then Adam with b1 0.9,
+  b2 0.999 and eps 1e-8 outside the square root, at the carried LR. On the
+  card the clip and Adam run in one hand-written kernel pair over every
+  leaf (`csrc/clip_adam.cu`: the norm's partial sums, then the update), in
+  the plain version's arithmetic order element by element; on the CPU in
+  the plain version's eager per-leaf ops.
 
 Across ranks (`group`, parallel/mesh.py; JAX `axis_name` under shard_map):
 each rank rolls out its shard of the envs and updates its local slice of
@@ -47,6 +51,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from dexrobot_isaac_tpu_torch.ops.clip_adam import clip_adam
 from dexrobot_isaac_tpu_torch.parallel.mesh import Group, single_process
 from dexrobot_isaac_tpu_torch.rl.networks import ActorCritic
 from dexrobot_isaac_tpu_torch.rl.running_stats import RunningMeanStd
@@ -335,21 +340,10 @@ class PPOLearner:
 
     def _apply_updates(self, params, opt: AdamState, grads, lr):
         """optax chain(clip_by_global_norm, adam) at learning rate `lr`, then
-        apply_updates: the new (params, AdamState)."""
+        apply_updates (`ops/clip_adam.py`): the new (params, AdamState)."""
         cfg = self.cfg
-        if cfg.truncate_grads:
-            g_norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
-            keep = g_norm < cfg.grad_norm
-            grads = {k: torch.where(keep, g, (g / g_norm) * cfg.grad_norm)
-                     for k, g in grads.items()}
-        b1, b2, eps = 0.9, 0.999, 1e-8
-        count = opt.count + 1
-        cf = count.float()
-        bc1, bc2 = 1 - b1 ** cf, 1 - b2 ** cf
-        mu = {k: (1 - b1) * g + b1 * opt.mu[k] for k, g in grads.items()}
-        nu = {k: (1 - b2) * (g * g) + b2 * opt.nu[k] for k, g in grads.items()}
-        new = {k: params[k] + (-lr) * ((mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + eps))
-               for k in params}
+        new, count, mu, nu = clip_adam(params, grads, opt.mu, opt.nu, opt.count, lr,
+                                       cfg.grad_norm if cfg.truncate_grads else None)
         return new, AdamState(count, mu, nu)
 
     def _global_grads(self, params, obs_rms: RunningMeanStd, mb):

@@ -35,6 +35,7 @@ BUILDS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "fused_step_inhand": ("fused_step", ("-DFS_TASK=4",)),        # K1, InHandReorientation
     "fused_step_pushing": ("fused_step", ("-DFS_TASK=5",)),       # K1, BoxPushing
     "spd_solve": ("spd_solve", ()),                             # K3
+    "clip_adam": ("clip_adam", ()),                             # the learner's clip + Adam
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
